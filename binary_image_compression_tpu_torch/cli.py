@@ -1,4 +1,4 @@
-"""Command line of the PyTorch/CUDA port (codec 8, causal mode).
+"""Command line of the PyTorch/CUDA port (codec 8, causal and strict mode).
 
 Counterpart of ``binary_image_compression_tpu/cli.py`` for the commands the
 port covers:
@@ -9,8 +9,9 @@ port covers:
     python -m binary_image_compression_tpu_torch extract    in.bica out.pbm --page 0
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain PyTorch
-versions of the kernels.  Other codecs and modes exit with the ROADMAP item
-that will port them.
+versions of the kernels.  ``--mode strict`` encodes with the residual-
+substitution kernel K3 (archives: the native host encoder per page).  Other
+codecs exit with the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -26,11 +27,8 @@ def _params(args):
         sys.exit(f"codec {args.codec} is not ported yet: codecs 4/7 are "
                  "ROADMAP.md Queue 1 item 12, codec 13 item 7; use the JAX "
                  "package (python -m binary_image_compression_tpu)")
-    if args.mode != "causal":
-        sys.exit("strict mode is not ported yet (ROADMAP.md Queue 1 item 5); "
-                 "use --mode causal")
     return codec.CodecParams(codec=8, W=args.W, T=args.T, R=args.R,
-                             strict=False)
+                             strict=args.mode == "strict")
 
 
 def _add_codec_opts(p):
@@ -51,7 +49,8 @@ def cmd_compress(args):
                  "(ROADMAP.md Queue 1 item 8)")
     params = _params(args)
     img = pnm.read_pbm(args.input)
-    blob = compress.encode(img, params, device=args.device)
+    encode = compress.encode_strict if params.strict else compress.encode
+    blob = encode(img, params, device=args.device)
     with open(args.output, "wb") as f:
         f.write(blob)
     raw = img.size // 8
@@ -104,7 +103,7 @@ def main(argv=None):
         formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("compress", help="PBM -> .bic (codec 8, causal)")
+    p = sub.add_parser("compress", help="PBM -> .bic (codec 8)")
     p.add_argument("input")
     p.add_argument("output")
     _add_codec_opts(p)

@@ -20,16 +20,20 @@
 // What the design does about it: the contexts live in registers, replicated
 // in every lane; each lane prefetches the inputs of one of the next 32 tiles
 // so the serial loop reads them with __shfl_sync instead of global loads;
-// the k search is one 32-lane compare, __ballot_sync and __ffs; the
-// enumerative-codelength LUT enb sits in shared memory.
+// the k search is one 32-lane compare, __ballot_sync and __ffs
+// (packed_select.cuh, shared with K3); the enumerative-codelength LUT enb
+// sits in shared memory: M + 1 <= 4097 entries (W <= 64), 16 KB.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "packed_select.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using bic::kFull;
 constexpr int kBig = 1 << 28;
+constexpr int kMaxEnb = 64 * 64 + 1;
 
 __global__ void __launch_bounds__(32)
 decide_modes_kernel(const int32_t* __restrict__ w4,
@@ -79,8 +83,7 @@ decide_modes_kernel(const int32_t* __restrict__ w4,
       }
       const unsigned n = (match ? m_n : n_n) + 1u;
       const unsigned acc = (match ? m_acc : n_acc) + (unsigned)weight;
-      const unsigned ok = __ballot_sync(kFull, (n << lane) >= acc);
-      const int k = ok ? __ffs(ok) - 1 : 31;
+      const int k = bic::golomb_k(n, acc);
       if (match) { m_n = n; m_acc = acc; m_k = k; }
       else       { n_n = n; n_acc = acc; n_k = k; }
     }
@@ -101,7 +104,7 @@ extern "C" int bic_decide_modes(const void* w4, const void* hc, const void* il,
                                 int n_enb, int use_pred, int mcost, int ncost,
                                 void* stream) {
   if (B <= 0 || T <= 0) return (int)cudaSuccess;
-  if (n_enb <= 0 || n_enb > 4096) return (int)cudaErrorInvalidValue;
+  if (n_enb <= 0 || n_enb > kMaxEnb) return (int)cudaErrorInvalidValue;
   decide_modes_kernel<<<B, 32, n_enb * sizeof(int32_t),
                         (cudaStream_t)stream>>>(
       (const int32_t*)w4, (const int32_t*)hc, (const int32_t*)il,

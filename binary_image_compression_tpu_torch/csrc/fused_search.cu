@@ -30,30 +30,22 @@
 // candidate rows above and below; off-window candidates skip their loads;
 // the tile's own W fields sit in shared memory.  The block minimum is two
 // 32-bit __reduce_min_sync per warp (high word, then low word among the
-// lanes holding the high minimum) and a shared-memory pass over the warps.
+// lanes holding the high minimum) and a shared-memory pass over the warps
+// (packed_select.cuh, shared with K3 and K4).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "packed_select.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr unsigned long long kInf = 1ULL << 62;
 
 struct Params {
-  int He, We, nx, T, W, R, T_thresh, cols, invert, y_base, span, off1, kb, db;
+  int He, We, nx, T, W, R, T_thresh, cols, invert, y_base;
+  bic::Layout lay;
 };
-
-__device__ long long count_lt(long long ks, long long c, long long r,
-                              long long span) {
-  // |{(ry, xt): 0 <= ry < r, 0 <= xt < c, ry*span + xt < ks}|, c < span
-  if (c <= 0 || ks <= 0) return 0;
-  long long nf = ks >= c ? (ks - c) / span + 1 : 0;
-  nf = nf < 0 ? 0 : (nf > r ? r : nf);
-  long long rem = ks - nf * span;
-  rem = rem < 0 ? 0 : (rem > c ? c : rem);
-  return nf * c + (nf < r ? rem : 0);
-}
 
 __global__ void __launch_bounds__(kThreads)
 fused_search_select_kernel(const uint32_t* __restrict__ E,
@@ -79,9 +71,8 @@ fused_search_select_kernel(const uint32_t* __restrict__ E,
   const int M = W * W;
   const int ncol = 2 * R + 1;
   const int ncand = (R + 1) * ncol;
-  const unsigned long long flag = 1ULL << (p.db + p.kb + 2);
 
-  unsigned long long best = kInf;
+  unsigned long long best = bic::kInf;
   for (int idx = threadIdx.x; idx < ncand; idx += kThreads) {
     const int r = idx / ncol;
     const long long x = (long long)j0 - R + (idx - r * ncol);
@@ -89,70 +80,32 @@ fused_search_select_kernel(const uint32_t* __restrict__ E,
     const bool in1 = j0 >= W && y >= lo1 && y <= i0a && x >= minj && x <= maxj2;
     const bool in2 = y >= lo2 && y <= i0a - W && x >= minj && x <= maxj;
     if (!(in1 || in2)) continue;
-    long long key = (long long)kInf;
-    if (in1) key = (i0a - y) * p.span + (maxj2 - x);
+    long long key = (long long)bic::kInf;
+    if (in1) key = (i0a - y) * p.lay.span + (maxj2 - x);
     if (in2) {
-      const long long k2 = p.off1 + (i0a - W - y) * p.span + (maxj - x);
+      const long long k2 = p.lay.off1 + (i0a - W - y) * p.lay.span + (maxj - x);
       key = k2 < key ? k2 : key;
     }
     const uint32_t* col = Eb + (size_t)(oy + r) * p.We + x;
     int d = 0;
     for (int a = 0; a < W; ++a) d += __popc(__ldg(col + (size_t)a * p.We) ^ tf[a]);
-    int dp = d;
-    unsigned long long inv = 0;
-    if (p.invert) {
-      inv = (M - d) < d;
-      dp = min(d, M - d);
-    }
-    const unsigned long long uk = (unsigned long long)key;
-    const unsigned long long ud = (unsigned long long)dp;
     const unsigned long long pr =
-        dp <= p.T_thresh ? (uk << (p.db + 1)) | (ud << 1) | inv
-                         : flag | (ud << (p.kb + 1)) | (uk << 1) | inv;
+        bic::packed_priority(d, key, M, p.T_thresh, p.invert, p.lay);
     best = pr < best ? pr : best;
   }
 
-  const unsigned hi = (unsigned)(best >> 32);
-  const unsigned mhi = __reduce_min_sync(0xffffffffu, hi);
-  const unsigned lo = hi == mhi ? (unsigned)best : 0xffffffffu;
-  const unsigned mlo = __reduce_min_sync(0xffffffffu, lo);
-  if ((threadIdx.x & 31) == 0)
-    wmin[threadIdx.x >> 5] = ((unsigned long long)mhi << 32) | mlo;
-  __syncthreads();
+  best = bic::block_min_u64<kThreads>(best, wmin);
   if (threadIdx.x != 0) return;
-
-  unsigned long long pu = wmin[0];
-  for (int w = 1; w < kThreads / 32; ++w) pu = wmin[w] < pu ? wmin[w] : pu;
-  const long long pr = (long long)pu;
-  const bool found = pu < kInf;
-  const bool is_stop = pu < flag;
-  const long long kmask = (1LL << p.kb) - 1, dmask = (1LL << p.db) - 1;
-  const long long key_sel = is_stop ? pr >> (p.db + 1) : (pr >> 1) & kmask;
-  long long bestd = is_stop ? (pr >> 1) & dmask : (pr >> (p.kb + 1)) & dmask;
-  const bool g2 = key_sel >= p.off1;
-  const long long q = g2 ? key_sel - p.off1 : key_sel;
-  const long long ry = q / p.span, xt = q - ry * p.span;
-  const long long y = g2 ? i0a - W - ry : i0a - ry;
-  const long long x = g2 ? maxj - xt : maxj2 - xt;
-
-  const long long r1 = (i0a < W ? i0a : W) + 1;
-  const long long c1 = j0 >= W ? maxj2 - minj + 1 : 0;
-  const long long r2v = i0a - W - lo2 + 1;
-  const long long r2 = r2v > 0 ? r2v : 0;
-  const long long c2 = maxj - minj + 1;
-  const long long n_cands = r1 * c1 + r2 * c2;
-  const long long rank = count_lt(key_sel, c1, r1, p.span) +
-                         count_lt(g2 ? key_sel - p.off1 : -1, c2, r2, p.span);
-
+  const bic::Selected s = bic::packed_decode(best, i0a, j0, W, R, p.cols, p.lay);
   int32_t* o = out + ((size_t)b * p.T + t) * 8;
-  o[0] = found ? (int32_t)bestd : 0;
-  o[1] = found ? (int32_t)(y - oya) : 0;
-  o[2] = found ? (int32_t)(pr & 1) : 0;
-  o[3] = found ? 1 : 0;
-  o[4] = found ? (int32_t)rank : 0;
-  o[5] = (int32_t)n_cands;
-  o[6] = n_cands > 0 ? 1 : 0;
-  o[7] = found ? (int32_t)x : 0;
+  o[0] = (int32_t)s.bestd;
+  o[1] = s.found ? (int32_t)(s.y - oya) : 0;
+  o[2] = s.inv;
+  o[3] = s.found;
+  o[4] = (int32_t)s.rank;
+  o[5] = (int32_t)s.n_cands;
+  o[6] = s.n_cands > 0 ? 1 : 0;
+  o[7] = (int32_t)s.x;
 }
 
 }  // namespace
@@ -167,8 +120,8 @@ extern "C" int bic_fused_search_select(const void* E, void* out, int B,
                                        void* stream) {
   if (B <= 0 || T <= 0) return (int)cudaSuccess;
   if (W < 1 || W > 32 || B > 65535) return (int)cudaErrorInvalidValue;
-  Params p{He, We, nx, T, W, R, T_thresh, cols, invert, y_base, span, off1,
-           kb, db};
+  Params p{He, We, nx, T, W, R, T_thresh, cols, invert, y_base,
+           bic::Layout{span, off1, kb, db}};
   dim3 grid((unsigned)T, (unsigned)B);
   fused_search_select_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)E, (int32_t*)out, p);

@@ -1,0 +1,133 @@
+// Device helpers shared by the selection kernels K1 (fused_search.cu), K3
+// (strict_analyze.cu) and K4 (select_windows.cu), and the Golomb update
+// K2 (decide_modes.cu) and K3 share.
+//
+// The serial-scan selection is ONE min over a 64-bit packed priority
+//     stop ? key << (db+1) | d' << 1 | inv : FLAG | d' << (kb+1) | key << 1 | inv
+// (ops/fused_search.py::packed_sel_layout); the winner decodes from its
+// scan key with the closed-form rectangle counts of
+// binary_image_compression_tpu/ops/pallas_kernels.py::_packed_decode.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace bic {
+
+constexpr unsigned long long kInf = 1ULL << 62;
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Layout {
+  int span, off1, kb, db;
+};
+
+// The packed priority of a candidate at distance d with scan key `key`.
+__device__ __forceinline__ unsigned long long packed_priority(
+    int d, long long key, int M, int T_thresh, int invert, Layout lay) {
+  int dp = d;
+  unsigned long long inv = 0;
+  if (invert) {
+    inv = (M - d) < d;
+    dp = min(d, M - d);
+  }
+  const unsigned long long uk = (unsigned long long)key;
+  const unsigned long long ud = (unsigned long long)dp;
+  const unsigned long long flag = 1ULL << (lay.db + lay.kb + 2);
+  return dp <= T_thresh ? (uk << (lay.db + 1)) | (ud << 1) | inv
+                        : flag | (ud << (lay.kb + 1)) | (uk << 1) | inv;
+}
+
+// Minimum of a 64-bit value over a full warp: high words first, then the
+// low words of the lanes holding the high minimum.
+__device__ __forceinline__ unsigned long long warp_min_u64(
+    unsigned long long v) {
+  const unsigned hi = (unsigned)(v >> 32);
+  const unsigned mhi = __reduce_min_sync(kFull, hi);
+  const unsigned lo = hi == mhi ? (unsigned)v : 0xffffffffu;
+  const unsigned mlo = __reduce_min_sync(kFull, lo);
+  return ((unsigned long long)mhi << 32) | mlo;
+}
+
+// Minimum over the block, returned to every thread.  Every thread of the
+// block must call it; `scratch` holds one word per warp and may be reused
+// as soon as it returns.
+template <int kThreads>
+__device__ __forceinline__ unsigned long long block_min_u64(
+    unsigned long long v, unsigned long long* scratch) {
+  v = warp_min_u64(v);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  unsigned long long m = scratch[0];
+  for (int w = 1; w < kThreads / 32; ++w) m = scratch[w] < m ? scratch[w] : m;
+  __syncthreads();
+  return m;
+}
+
+__device__ __forceinline__ long long count_lt(long long ks, long long c,
+                                              long long r, long long span) {
+  // |{(ry, xt): 0 <= ry < r, 0 <= xt < c, ry*span + xt < ks}|, c < span
+  if (c <= 0 || ks <= 0) return 0;
+  long long nf = ks >= c ? (ks - c) / span + 1 : 0;
+  nf = nf < 0 ? 0 : (nf > r ? r : nf);
+  long long rem = ks - nf * span;
+  rem = rem < 0 ? 0 : (rem > c ? c : rem);
+  return nf * c + (nf < r ? rem : 0);
+}
+
+struct Selected {
+  long long bestd, y, x, rank, n_cands;
+  int inv, found;
+};
+
+// Decode a packed minimum for the tile at absolute (i0, j0): the winner's
+// absolute (y, x), zeros when there was no candidate.  n_cands counts both
+// window grids (the y = i0-W row twice); with R < W both are empty.
+__device__ __forceinline__ Selected packed_decode(unsigned long long pu,
+                                                  long long i0, long long j0,
+                                                  int W, int R, int cols,
+                                                  Layout lay) {
+  const long long pr = (long long)pu;
+  const bool found = pu < kInf;
+  const bool is_stop = pu < (1ULL << (lay.db + lay.kb + 2));
+  const long long kmask = (1LL << lay.kb) - 1, dmask = (1LL << lay.db) - 1;
+  const long long key_sel = is_stop ? pr >> (lay.db + 1) : (pr >> 1) & kmask;
+  const long long bestd =
+      is_stop ? (pr >> 1) & dmask : (pr >> (lay.kb + 1)) & dmask;
+  const long long minj = j0 - R > 0 ? j0 - R : 0;
+  const long long maxj2 = j0 - W > 0 ? j0 - W : 0;
+  const long long maxj = j0 + R < cols - W ? j0 + R : cols - W;
+  const bool g2 = key_sel >= lay.off1;
+  const long long q = g2 ? key_sel - lay.off1 : key_sel;
+  const long long ry = q / lay.span, xt = q - ry * lay.span;
+
+  const long long r1 = (i0 < W ? i0 : W) + 1;
+  const long long c1v = maxj2 - minj + 1;
+  const long long c1 = j0 >= W && c1v > 0 ? c1v : 0;
+  const long long lo2 = i0 - R > 0 ? i0 - R : 0;
+  const long long r2v = i0 - W - lo2 + 1;
+  const long long r2 = r2v > 0 ? r2v : 0;
+  const long long c2 = maxj - minj + 1;
+
+  Selected s;
+  s.found = found;
+  s.n_cands = r1 * c1 + r2 * c2;
+  s.bestd = found ? bestd : 0;
+  s.inv = found ? (int)(pr & 1) : 0;
+  s.y = found ? (g2 ? i0 - W - ry : i0 - ry) : 0;
+  s.x = found ? (g2 ? maxj - xt : maxj2 - xt) : 0;
+  s.rank = found ? count_lt(key_sel, c1, r1, lay.span) +
+                       count_lt(g2 ? key_sel - lay.off1 : -1, c2, r2, lay.span)
+                 : 0;
+  return s;
+}
+
+// The next Golomb parameter after (n, acc) were updated: the least k in
+// 0..31 with (n << k) mod 2^32 >= acc, else 31 (GolombCoder.cpp:29-33).
+// One compare per lane of a full warp.
+__device__ __forceinline__ int golomb_k(unsigned n, unsigned acc) {
+  const unsigned ok = __ballot_sync(kFull, (n << (threadIdx.x & 31)) >= acc);
+  return ok ? __ffs(ok) - 1 : 31;
+}
+
+}  // namespace bic

@@ -31,8 +31,10 @@ def encode_pages(pages, params: CodecParams | None = None, *,
                  batch_size: int = 8, device="cuda",
                  done: dict[int, bytes] | None = None,
                  after_batch=None) -> list[bytes]:
-    """Encode a page list; same-shaped pages go through the device in
-    batches of `batch_size` (one K1 and one K2 launch per batch).
+    """Encode a page list in batches of `batch_size`.  Causal pages of one
+    shape go through the device together (one search and one K2 launch per
+    batch); strict pages go to the native host encoder one at a time, as
+    in the JAX package, which has no batched strict kernel.
 
     done: already-encoded {index: blob} to skip (resume).
     after_batch(new: dict[int, bytes]): called after every finished batch."""
@@ -45,13 +47,19 @@ def encode_pages(pages, params: CodecParams | None = None, *,
     groups: dict[tuple, list[int]] = {}
     for i in range(len(pages)):
         if not blobs[i]:
-            groups.setdefault(pages[i].shape, []).append(i)
+            key = () if params.strict else pages[i].shape
+            groups.setdefault(key, []).append(i)
+
+    def encode(chunk):
+        if params.strict:
+            return [compress_mod.host_encode(pages[i], params) for i in chunk]
+        return compress_mod.encode_batch(np.stack([pages[i] for i in chunk]),
+                                         params, device=device)
+
     for idxs in groups.values():
         for s in range(0, len(idxs), batch_size):
             chunk = idxs[s: s + batch_size]
-            arr = np.stack([pages[i] for i in chunk])
-            new = dict(zip(chunk, compress_mod.encode_batch(arr, params,
-                                                            device=device)))
+            new = dict(zip(chunk, encode(chunk)))
             for i, b in new.items():
                 blobs[i] = b
             if after_batch is not None:

@@ -1,22 +1,26 @@
-"""The codec-8 causal encoder: device analysis + native record packing.
+"""The codec-8 encoders: device analysis + native record packing.
 
-Counterpart of the decided causal path of ``binary_image_compression_tpu/
-models/compress.py``: ``_check_W`` (:40), ``_idx_len`` (:48),
-``encode_analyze`` (:70, fused variant), ``_finish_selection`` (:186),
-``_finish_selection_fields`` (:232), ``encode_analyze_decided`` (:278),
-``_split_decided`` / ``_pack_decided`` (:322-356), ``_decide_modes`` (:359),
-``encode`` (:397) and ``encode_batch`` (:483).
+Counterpart of ``binary_image_compression_tpu/models/compress.py``:
+``_check_W`` (:40), ``encode_analyze`` (:70, fused and banded variants),
+``_finish_selection`` (:186), ``_finish_selection_fields`` (:232),
+``encode_analyze_decided`` (:278), ``_split_decided`` / ``_pack_decided``
+(:322-356), ``_decide_modes`` (:359), ``encode`` (:397), ``encode_batch``
+(:483) and ``encode_strict`` (:1049).
 
-Per batch of same-sized pages, on the device:
+Causal mode, per batch of same-sized pages, on the device:
   1. packed int32 pages in, unpacked to 0/1;
-  2. the W-bit row-field plane;
-  3. kernel K1 (ops/fused_search): search + serial-scan selection;
-  4. the finish: candidate gathers, inversion, MED, weights, residual words;
-  5. kernel K2 (ops/decide): the mode decision;
-  6. the chosen residual plus a packed header word, one int32 [B, T, 2+nw]
-     block;
-then per page on the host, native ``bic_pack_tiles`` writes the stream.
-Streams are byte-identical to the JAX package's and the host encoder's.
+  2. the search and serial-scan selection: kernel K1 (ops/fused_search) on
+     the W-bit row-field plane, or, for shapes K1 does not take (W > 32, a
+     band over its budget), the banded distance maps (ops/search) and
+     kernel K4 (ops/select_windows);
+  3. the finish: candidate gathers, inversion, MED, weights, residual words;
+  4. kernel K2 (ops/decide): the mode decision;
+  5. the chosen residual plus a packed header word, one int32 [B, T, 2+nw]
+     block.
+Strict mode, one page: kernel K3 (ops/strict) runs the whole residual-
+substitution chain and yields the same record block.  Then per page on the
+host, native ``bic_pack_tiles`` writes the stream.  Streams are
+byte-identical to the JAX package's and the host encoder's.
 """
 
 from __future__ import annotations
@@ -30,12 +34,14 @@ import numpy as np
 import torch
 
 from .. import native
-from ..ops import bitpack, decide, fused_search, search
+from ..ops import (bitpack, decide, fused_search, search, select_windows,
+                   strict)
 from ..ops.bitstream import BitWriter, enum_encode, enum_nbits, golomb_encode
 from ..ops.entropy import GolombCoder
 from .codec import CodecParams, _header, image_crc
 
-# pages encoded by the host encoder because R < W (not a device launch)
+# pages the native host encoder took: causal R < W, strict shapes outside
+# strict.supported, strict archive pages (not a device launch)
 host_route = collections.Counter()
 
 
@@ -51,8 +57,7 @@ def _check_causal8(params):
             f"codec {params.codec}: this port encodes codec 8 only (codecs "
             "4/7 are ROADMAP.md Queue 1 item 12; 13 is item 7)")
     if params.strict:
-        raise NotImplementedError(
-            "strict mode is ROADMAP.md Queue 1 item 5; use causal mode")
+        raise ValueError("strict mode is encoded by compress.encode_strict")
 
 
 def resolve_device(device) -> torch.device:
@@ -65,20 +70,6 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
-
-
-def _idx_len(n_cands: torch.Tensor) -> torch.Tensor:
-    """Integer-exact max(1, (n-1).bit_length()) for n > 0, else 0."""
-    n1 = torch.clamp(n_cands.to(torch.int64), min=1) - 1
-    ks = 1 << torch.arange(31, device=n_cands.device, dtype=torch.int64)
-    bl = (n1[..., None] >= ks).sum(dim=-1)
-    return torch.where(n_cands > 0, torch.clamp(bl, min=1), 0)
-
-
-def _med_fields(q: torch.Tensor, wmask: int) -> torch.Tensor:
-    """MED residual on [..., W] row fields (bit W-1-c = column c)."""
-    up = torch.nn.functional.pad(q, (1, 0))[..., :-1]
-    return (q ^ up ^ (q >> 1) ^ (up >> 1)) & wmask
 
 
 def _med_tiles(P: torch.Tensor) -> torch.Tensor:
@@ -113,8 +104,8 @@ def _finish_selection_fields(plane, sel, oy, *, W: int, nx: int):
     wmask = (1 << W) - 1
     inv = sel[..., 2] != 0
     P3 = torch.where(inv[..., None], Pf ^ wmask, Pf) ^ P2f
-    dP3 = _med_fields(P3, wmask)
-    dPf = _med_fields(Pf, wmask)
+    dP3 = bitpack.med_fields(P3, wmask)
+    dPf = bitpack.med_fields(Pf, wmask)
     res4f = torch.stack([P3, dP3, Pf, dPf], dim=2)             # [B, T, 4, W]
     weights4 = bitpack.popcount(res4f).sum(dim=-1)
     fpw = 32 // W                                   # fields per packed word
@@ -159,14 +150,23 @@ def encode_analyze(img, *, W: int, R: int, T_thresh: int, rows: int,
         raise ValueError(f"device search requires R >= W (got R={R}, "
                          f"W={W}); use the host encoder")
     ny, nx = -(-rows // W), -(-cols // W)
-    sel, oy, plane = fused_search.fused_search_select(
-        img, ny, nx, W=W, R=R, T_thresh=T_thresh, cols=cols, invert=invert)
-    return finish_analysis(img, sel, oy, plane, W=W, nx=nx)
+    if fused_search.fused_supported(ny, nx, W, R):
+        sel, oy, plane = fused_search.fused_search_select(
+            img, ny, nx, W=W, R=R, T_thresh=T_thresh, cols=cols,
+            invert=invert)
+        return finish_analysis(img, sel, oy, plane, W=W, nx=nx)
+    # the banded fallback (compress.py:128-135 of the JAX package)
+    d, oy, ox = search.window_distance_maps_banded(img, W, R)
+    sel = select_windows.select_windows(d, oy, ox, nx, W=W, R=R,
+                                        T_thresh=T_thresh, cols=cols,
+                                        invert=invert)
+    return finish_analysis(img, sel, oy, None, W=W, nx=nx)
 
 
 def finish_analysis(img, sel, oy, plane, *, W: int, nx: int) -> dict:
-    """The finish after K1: the dict ``encode_analyze`` returns."""
-    if 32 % W == 0:
+    """The finish after the selection: the dict ``encode_analyze`` returns.
+    The field finish needs K1's plane; the banded route has none."""
+    if plane is not None and 32 % W == 0:
         weights4, residual4 = _finish_selection_fields(plane, sel, oy, W=W,
                                                        nx=nx)
     else:
@@ -174,7 +174,7 @@ def finish_analysis(img, sel, oy, plane, *, W: int, nx: int) -> dict:
     n_cands = sel[..., 5]
     return dict(rank=sel[..., 4], n_cands=n_cands, inv=sel[..., 2] != 0,
                 has_cands=sel[..., 6] != 0, weights4=weights4,
-                idx_len=_idx_len(n_cands), residual4=residual4)
+                idx_len=decide.idx_len(n_cands), residual4=residual4)
 
 
 @lru_cache(maxsize=None)
@@ -207,18 +207,26 @@ def decide_records(out: dict, M: int) -> torch.Tensor:
     mode, weight, k_used = decide.decide_modes(
         i32(out["weights4"]), i32(out["has_cands"]), i32(out["idx_len"]),
         enb, codec_id=8)
-    mode = mode.to(torch.int64)
     res = torch.gather(out["residual4"], 2,
-                       mode[..., None, None].expand(
+                       mode.to(torch.int64)[..., None, None].expand(
                            -1, -1, 1, out["residual4"].shape[-1]))[:, :, 0]
+    return _record_block(mode, out["inv"], k_used, out["idx_len"], weight,
+                         out["rank"], res)
+
+
+def _record_block(mode, inv, k_used, idx_len, weight, rank, words):
+    """The int32 [..., 2 + nw] record block of decided tiles: the header
+    word, the rank and the chosen residual's words.  inv and idx_len are
+    coded for matches only, so they are zeroed for the other modes."""
+    mode = mode.to(torch.int64)
     is_match = mode < 2
-    inv = (is_match & out["inv"]).to(torch.int64)
-    il = torch.where(is_match, out["idx_len"], 0)
+    inv = (is_match & (inv != 0)).to(torch.int64)
+    il = torch.where(is_match, idx_len.to(torch.int64), 0)
     w0 = (mode | (inv << 2) | (k_used.to(torch.int64) << 3) | (il << 8)
           | (weight.to(torch.int64) << 14))
     return torch.cat([w0[..., None].to(torch.int32),
-                      out["rank"][..., None].to(torch.int32),
-                      bitpack.to_i32(res)], dim=-1)
+                      rank[..., None].to(torch.int32),
+                      bitpack.to_i32(words)], dim=-1)
 
 
 def _split_decided(block: np.ndarray) -> dict:
@@ -291,9 +299,10 @@ def _decide_modes(out: dict, M: int, codec_id: int = 8):
     return mode, weight, k_used
 
 
-def _host_encode(img: np.ndarray, params: CodecParams) -> bytes:
-    """The R < W route: the native host encoder (the device band geometry
-    covers grid-1 rows only for R >= W)."""
+def host_encode(img: np.ndarray, params: CodecParams) -> bytes:
+    """The native host encoder, for the shapes the device paths leave to
+    it: causal R < W (the device band covers grid-1 rows only for R >= W)
+    and strict shapes outside ``strict.supported``."""
     host_route["pages"] += 1
     hdr = _header(params, *img.shape, image_crc(img))
     return native.encode_windowed(img, hdr, params.codec, params.strict,
@@ -328,7 +337,7 @@ def encode_batch(pages: np.ndarray, params: CodecParams | None = None, *,
     _check_W(params)
     pages = np.asarray(pages, dtype=bool)
     if params.R < params.W:
-        return [_host_encode(p, params) for p in pages]
+        return [host_encode(p, params) for p in pages]
     dev = resolve_device(device)
     _, rows, cols = pages.shape
     block = encode_analyze_decided(
@@ -353,3 +362,31 @@ def pack_pages(block: np.ndarray, pages: np.ndarray,
         return [build(b) for b in range(B)]
     with ThreadPoolExecutor(max_workers=workers) as ex:
         return list(ex.map(build, range(B)))
+
+
+def encode_strict(img: np.ndarray, params: CodecParams | None = None, *,
+                  device="cuda") -> bytes:
+    """Encode one page in strict mode (codec 8): kernel K3 on `device` for
+    the shapes ``strict.supported`` takes, else the native host encoder.
+    Byte-identical to the host strict encoder."""
+    params = params or CodecParams(codec=8, strict=True)
+    if params.codec != 8 or not params.strict:
+        raise ValueError("encode_strict takes codec 8 with strict=True")
+    _check_W(params)
+    img = np.asarray(img, dtype=bool)
+    W, R = params.W, params.R
+    if not strict.supported(W, R):
+        return host_encode(img, params)
+    dev = resolve_device(device)
+    rows, cols = img.shape
+    grid = np.zeros((-(-rows // W) * W, -(-cols // W) * W), dtype=bool)
+    grid[:rows, :cols] = img
+    enb = torch.from_numpy(enb_lut(W * W)).to(dev)
+    out, fields = strict.strict_analyze(
+        torch.from_numpy(grid).to(dev), enb, W=W, R=R,
+        T_thresh=params.resolved_T(), cols=cols)
+    c = {n: out[:, i] for i, n in enumerate(strict.OUT_FIELDS)}
+    block = _record_block(c["mode"], c["inv"], c["k_used"], c["idx_len"],
+                          c["weight"], c["rank"],
+                          bitpack.fields_to_words(fields, W))
+    return pack_pages(block[None].cpu().numpy(), img[None], params)[0]

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-At first use, nvcc compiles every ``csrc/*.cu`` for sm_90a into one shared
-library with a plain C interface, ``build/kernels/libbic_kernels.so``, which
-is loaded with ctypes.  Each launcher takes its pointers and the CUDA stream
+At first use, nvcc compiles every ``csrc/*.cu`` for sm_90a, one process per
+source, all started together, and links the objects into one shared library
+with a plain C interface, ``build/kernels/libbic_kernels.so``, which is
+loaded with ctypes.  Each launcher takes its pointers and the CUDA stream
 as ``c_void_p``, launches on that stream and returns ``cudaGetLastError()``;
 ``check`` raises on anything but 0.  Nothing falls back: a missing nvcc, a
 failed build or a failed launch raises.
@@ -26,7 +27,7 @@ _REPO = os.path.dirname(_PKG)
 CSRC = os.path.join(_PKG, "csrc")
 LIB = os.path.join(_REPO, "build", "kernels", "libbic_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 launches: collections.Counter = collections.Counter()
 
@@ -36,6 +37,11 @@ _lock = threading.Lock()
 
 def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _newest_source() -> float:
+    return max(os.path.getmtime(f) for f in glob.glob(os.path.join(CSRC, "*"))
+               if f.endswith((".cu", ".cuh")))
 
 
 def _nvcc() -> str:
@@ -50,15 +56,39 @@ def _nvcc() -> str:
 
 
 def build() -> str:
-    """Compile csrc/*.cu into LIB; returns nvcc's -Xptxas -v report."""
-    os.makedirs(os.path.dirname(LIB), exist_ok=True)
-    tmp = f"{LIB}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *_sources()]
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if r.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + r.stderr[-6000:])
-    os.replace(tmp, LIB)
-    return r.stderr
+    """Compile csrc/*.cu into LIB, one nvcc per source, all at once, then
+    link; returns nvcc's -Xptxas -v report."""
+    out = os.path.dirname(LIB)
+    os.makedirs(out, exist_ok=True)
+    nvcc, tag = _nvcc(), os.getpid()
+    srcs = _sources()
+    objs = [os.path.join(out, f"{os.path.basename(s)}.{tag}.o") for s in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-Xptxas", "-v",
+                               "-o", obj, src], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(srcs, objs)]
+    try:
+        errs = [proc.communicate(timeout=900)[1] for proc in procs]
+        failed = [f"{os.path.basename(src)}:\n{err[-4000:]}"
+                  for src, err, proc in zip(srcs, errs, procs)
+                  if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = f"{LIB}.{tag}.tmp"
+        r = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                           capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + r.stderr[-4000:])
+        os.replace(tmp, LIB)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return "".join(errs)
 
 
 def get_lib() -> ctypes.CDLL:
@@ -66,8 +96,8 @@ def get_lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            newest = max(os.path.getmtime(s) for s in _sources())
-            if not os.path.exists(LIB) or newest > os.path.getmtime(LIB):
+            if (not os.path.exists(LIB)
+                    or _newest_source() > os.path.getmtime(LIB)):
                 build()
             lib = ctypes.CDLL(LIB)
             _declare(lib)
@@ -81,6 +111,10 @@ def _declare(lib) -> None:
     lib.bic_fused_search_select.argtypes = [p, p] + [i] * 15 + [p]
     lib.bic_decide_modes.restype = i
     lib.bic_decide_modes.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.bic_select_windows.restype = i
+    lib.bic_select_windows.argtypes = [p] * 4 + [i] * 14 + [p]
+    lib.bic_strict_analyze.restype = i
+    lib.bic_strict_analyze.argtypes = [p] * 6 + [i] * 10 + [p]
 
 
 def stream(device) -> ctypes.c_void_p:

@@ -58,6 +58,22 @@ def popcount(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) >> 24) & 0xFF
 
 
+def med_fields(q: torch.Tensor, wmask: int) -> torch.Tensor:
+    """MED residual on [..., W] W-bit row fields (bit W-1-c = column c):
+    each pixel XOR its up, left and up-left neighbours, zero outside."""
+    up = torch.nn.functional.pad(q, (1, 0))[..., :-1]
+    return (q ^ up ^ (q >> 1) ^ (up >> 1)) & wmask
+
+
+def fields_to_words(fields: torch.Tensor, W: int) -> torch.Tensor:
+    """[..., W] W-bit row fields (int64 values or int32 bit patterns) ->
+    int64 words [..., nwords(W*W)] of the row-major W x W bits (any W,
+    including W = 24, whose fields straddle words)."""
+    shifts = torch.arange(W - 1, -1, -1, device=fields.device)
+    bits = (fields.to(torch.int64)[..., None] >> shifts) & 1
+    return pack(bits.reshape(fields.shape[:-1] + (W * W,)))
+
+
 def to_i32(words: torch.Tensor) -> torch.Tensor:
     """int64 uint32 values -> int32 tensor with the same bit pattern."""
     w = words.to(torch.int64) & U32

@@ -21,6 +21,7 @@ from . import _cuda
 
 BIG = 1 << 28
 U32 = 0xFFFFFFFF
+MAX_ENB = 64 * 64 + 1     # M + 1 for W = 64; csrc/decide_modes.cu kMaxEnb
 
 
 def mode_costs(codec_id: int):
@@ -29,6 +30,15 @@ def mode_costs(codec_id: int):
     mcost = 1 + (1 if use_pred else 0) + (1 if codec_id == 8 else 0)
     ncost = 2 if use_pred else 1
     return use_pred, mcost, ncost
+
+
+def idx_len(n_cands: torch.Tensor) -> torch.Tensor:
+    """A match's rank width, integer-exact: max(1, (n-1).bit_length()) for
+    n > 0 candidates, else 0 (a float log2 could widen it at powers of 2)."""
+    n1 = torch.clamp(n_cands.to(torch.int64), min=1) - 1
+    ks = 1 << torch.arange(31, device=n_cands.device, dtype=torch.int64)
+    bl = (n1[..., None] >= ks).sum(dim=-1)
+    return torch.where(n_cands > 0, torch.clamp(bl, min=1), 0)
 
 
 def decide_modes_plain(weights4, has_cands, idx_len, enb, *,
@@ -105,6 +115,9 @@ def _launch(weights4, has_cands, idx_len, enb, *, codec_id):
                              f"on {dev}")
     if four != 4:
         raise ValueError("K2: weights4 must be [B, T, 4]")
+    if not 1 <= enb.shape[0] <= MAX_ENB:
+        raise ValueError(f"K2: enb has {enb.shape[0]} entries; the kernel "
+                         f"takes 1 to {MAX_ENB} (M + 1 for W <= 64)")
     use_pred, mcost, ncost = mode_costs(codec_id)
     out = torch.empty((B, T, 3), dtype=torch.int32, device=dev)
     lib = _cuda.get_lib()

@@ -68,7 +68,8 @@ def fused_supported(ny: int, nx: int, W: int, R: int) -> bool:
 
     W <= 32 (a tile row field per 32-bit word) and R >= W; the band bound is
     the JAX package's VMEM budget, kept so both packages route the same
-    shapes (the rest go to the banded search, ROADMAP.md Queue 1 item 6)."""
+    shapes (the rest take the banded search, ``search.
+    window_distance_maps_banded`` + K4 ``select_windows``)."""
     if W > 32 or R < W:
         return False
     k = next((kk for kk in (4, 3, 2) if W * kk <= 32 and W % kk == 0), 1)
@@ -101,16 +102,20 @@ def _field_plane(img: torch.Tensor, W: int, He: int, We: int) -> torch.Tensor:
     return E
 
 
-def _packed_window_keys(i0, j0, y, x, *, W, R, cols, lay):
-    """Scan keys and validity for broadcastable absolute (i0, j0, y, x)."""
+def _packed_window_keys(i0, j0, y, x, *, W, R, cols, lay, grids=(1, 2)):
+    """Scan keys and validity for broadcastable absolute (i0, j0, y, x).
+
+    grids restricts the window grids that contribute: strict mode scores
+    grid 2 per tile row and grid 1 per tile; a cell in both grids then
+    gives two priorities whose minimum is the combined cell's."""
     span, off1 = lay["span"], lay["off1"]
     minj = torch.clamp(j0 - R, min=0)
     maxj2 = torch.clamp(j0 - W, min=0)
     maxj = torch.clamp(j0 + R, max=cols - W)
     in1 = ((y >= torch.clamp(i0 - W, min=0)) & (y <= i0)
-           & (x >= minj) & (x <= maxj2) & (j0 >= W))
+           & (x >= minj) & (x <= maxj2) & (j0 >= W) & (1 in grids))
     in2 = ((y >= torch.clamp(i0 - R, min=0)) & (y <= i0 - W)
-           & (x >= minj) & (x <= maxj))
+           & (x >= minj) & (x <= maxj) & (2 in grids))
     key1 = torch.where(in1, (i0 - y) * span + (maxj2 - x), INF)
     key2 = torch.where(in2, off1 + (i0 - W - y) * span + (maxj - x), INF)
     return torch.minimum(key1, key2), in1 | in2
@@ -161,9 +166,10 @@ def _packed_decode(pr, i0, j0, oy, *, W, R, cols, lay):
     inv = torch.where(found, inv, zero)
     bestd = torch.where(found, bestd, zero)
 
-    # both window grids are rectangles in (scan-row, scan-col) space
+    # both window grids are rectangles in (scan-row, scan-col) space; with
+    # R < W (strict mode only) both are empty and the counts clamp to 0
     r1 = torch.clamp(i0, max=W) + 1
-    c1 = torch.where(j0 >= W, maxj2 - minj + 1, 0)
+    c1 = torch.where(j0 >= W, torch.clamp(maxj2 - minj + 1, min=0), 0)
     r2 = torch.clamp(i0 - W - torch.clamp(i0 - R, min=0) + 1, min=0)
     c2 = maxj - minj + 1
     n_cands = r1 * c1 + r2 * c2
@@ -242,8 +248,9 @@ def fused_search_select(img_bits, ny: int, nx: int, *, W: int, R: int,
     B, gh, gw = img_bits.shape
     if not fused_supported(ny, nx, W, R) or packed_sel_layout(W, R) is None:
         raise NotImplementedError(
-            f"W={W}, R={R}, {ny}x{nx} tiles: outside the fused search; the "
-            "banded search is ROADMAP.md Queue 1 item 6")
+            f"W={W}, R={R}, {ny}x{nx} tiles: outside the fused search; "
+            "compress.encode_analyze takes the banded route (search."
+            "window_distance_maps_banded + select_windows) for this shape")
     He = plane_height(gh, W, R)
     E = to_i32(_field_plane(img_bits, W, He, gw))
     oy = band_origins(ny, W, R, He, device=E.device).repeat_interleave(nx)

@@ -1,12 +1,14 @@
-"""Tile grid geometry.
+"""Tile grid geometry and the banded distance maps.
 
-Counterpart of ``tile_origins`` in ``binary_image_compression_tpu/ops/
-search.py``.
+Counterpart of ``tile_origins`` (:35) and ``window_distance_maps_banded``
+(:185) in ``binary_image_compression_tpu/ops/search.py``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .fused_search import _field_plane
 
 
 def tile_origins(rows: int, cols: int, W: int, device=None):
@@ -16,3 +18,60 @@ def tile_origins(rows: int, cols: int, W: int, device=None):
     ii, jj = torch.meshgrid(torch.arange(ny, device=device),
                             torch.arange(nx, device=device), indexing="ij")
     return (ii * W).reshape(-1), (jj * W).reshape(-1), ny, nx
+
+
+def _popcount64(x: torch.Tensor) -> torch.Tensor:
+    """SWAR popcount of all 64 bits of an int64 tensor (the masks clear the
+    bits that arithmetic right shifts bring in; the product wraps)."""
+    x = x - ((x >> 1) & 0x5555555555555555)
+    x = (x & 0x3333333333333333) + ((x >> 2) & 0x3333333333333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F0F0F0F0F
+    return ((x * 0x0101010101010101) >> 56) & 0xFF
+
+
+def banded_origins(gh: int, gw: int, W: int, R: int, device=None):
+    """(oy, ox) int64 [T]: each tile's clipped map origin, as the JAX
+    package clips its band and column slices (search.py:218, :234)."""
+    Hp, Wp = gh - W + 1, gw - W + 1
+    wh, ww = R + 1, 2 * R + W + 1
+    i0, j0, _, _ = tile_origins(gh, gw, W, device)
+    oy = torch.clamp(i0 - R, min=0, max=max(Hp + max(0, wh - Hp) - wh, 0))
+    ox = torch.clamp(j0 - R, min=0, max=max(Wp + max(0, ww - Wp) - ww, 0))
+    return oy, ox
+
+
+def window_distance_maps_banded(img: torch.Tensor, W: int, R: int):
+    """Distances from each tile to every cell of its search map.
+
+    img: 0/1 [B, ny*W, nx*W] padded tile grids, W <= 64.  Returns (d, oy,
+    ox): d int32 [B, T, R+1, 2R+W+1], cell (r, c) of tile t being candidate
+    (oy[t] + r, ox[t] + c), with oy, ox int64 [T] from ``banded_origins``.
+    Every cell inside the tile's window is exact; cells outside it (past
+    the image, or beyond the window) hold arbitrary values that selection
+    never reads.
+
+    d = sum_a popcount(F[y+a, x] ^ F[i0+a, j0]) over the W-bit row fields F
+    (int64, so W = 64 fits), one tile row at a time, so memory stays at
+    B * nx * (R+1) * (2R+W+1) words per step.  The JAX package contracts
+    bf16 patches on the MXU instead; both give the same integers."""
+    B, gh, gw = img.shape
+    dev = img.device
+    ny, nx = gh // W, gw // W
+    wh, ww = R + 1, 2 * R + W + 1
+    oy, ox = banded_origins(gh, gw, W, R, dev)
+    # rows and columns that any map reads, zero past the image
+    He = int(oy.max()) + wh + W - 1
+    We = int(ox.max()) + ww
+    F = _field_plane(img, W, He, We)
+    cidx = (ox[:nx, None] + torch.arange(ww, device=dev)).reshape(-1)
+    j0 = torch.arange(nx, device=dev) * W
+    d = torch.empty((B, ny, nx, wh, ww), dtype=torch.int32, device=dev)
+    for ti in range(ny):
+        i0, base = ti * W, int(oy[ti * nx])
+        tf = F[:, i0:i0 + W, j0]                                 # [B, W, nx]
+        acc = torch.zeros((B, wh, nx, ww), dtype=torch.int64, device=dev)
+        for a in range(W):
+            band = F[:, base + a:base + a + wh, cidx].reshape(B, wh, nx, ww)
+            acc += _popcount64(band ^ tf[:, a, None, :, None])
+        d[:, ti] = acc.permute(0, 2, 1, 3)
+    return d.reshape(B, ny * nx, wh, ww), oy, ox

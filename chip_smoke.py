@@ -3,11 +3,14 @@
     python3 chip_smoke.py
 
 Builds the native host library and the CUDA kernels from this checkout,
-holds each kernel against its plain PyTorch version on the card, drives the
-port's codec-8 causal encode (one 512x512 page, then a 64-page corpus
-through the archive writer) with the kernels' launch counts reset just
-before, checks every stream byte for byte against the native host encoder
-and round-trips it, and times each stage with CUDA events.  Imports no JAX.
+holds each kernel (K1 search, K2 decision, K3 strict analysis, K4 banded
+selection) against its plain PyTorch version on the card, then drives the
+port's three codec-8 paths, each with the launch counts reset just before
+it and read just after: the causal encode (one 512x512 page, then a
+64-page corpus through the archive writer), strict mode (``encode_strict``)
+and the banded fallback (``encode`` at W = 64 and W = 40).  Every stream is
+checked byte for byte against the native host encoder and round-tripped;
+stages and kernels are timed with CUDA events.  Imports no JAX.
 
 Any failure raises and exits non-zero; without CUDA it exits 1 at once.  The
 last line of standard output is a JSON object:
@@ -77,7 +80,7 @@ def grid_of(pages: np.ndarray, W: int, dev) -> torch.Tensor:
 
 
 def check_k1(fs, pnm, dev) -> int:
-    """Phase 2: K1 == its plain version on the same CUDA tensors."""
+    """K1 == its plain version on the same CUDA tensors."""
     doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
     rag = pnm.read_pbm(os.path.join(FIXTURES, "ragged75x101.pbm"))
     rnd = np.random.RandomState(7).rand(256, 320) < 0.3
@@ -113,13 +116,13 @@ def check_k1(fs, pnm, dev) -> int:
 
 
 def check_k2(dc, compress, dev) -> int:
-    """Phase 3: K2 == its plain version == the host replay."""
-    M = 256
+    """K2 == its plain version == the host replay, at M = 256 and
+    at M = 4096 (W = 64, an enb LUT of 4097 entries)."""
     rs = np.random.RandomState(11)
-    enb = torch.from_numpy(compress.enb_lut(M)).to(dev)
     worst = 0
-    for T in (1024, 4096):
+    for M, T in ((256, 1024), (256, 4096), (4096, 1024)):
         B = 2
+        enb = torch.from_numpy(compress.enb_lut(M)).to(dev)
         w4 = rs.randint(0, M + 1, size=(B, T, 4)).astype(np.int32)
         hc = (rs.rand(B, T) < 0.8).astype(np.int32)
         il = rs.randint(1, 12, size=(B, T)).astype(np.int32)
@@ -140,23 +143,83 @@ def check_k2(dc, compress, dev) -> int:
                     if not np.array_equal(g[k, b], host[k]):
                         raise AssertionError(
                             f"K2 != host replay (T={T}, codec {cid})")
-            log(f"K2 T={T} B={B} codec {cid}: max_abs_err vs plain={err}, "
-                f"== host replay")
+            log(f"K2 M={M} T={T} B={B} codec {cid}: max_abs_err vs "
+                f"plain={err}, == host replay")
             if err != 0:
                 raise AssertionError(f"K2 disagrees with its plain version "
-                                     f"(T={T}, codec {cid})")
+                                     f"(M={M}, T={T}, codec {cid})")
+    return worst
+
+
+def feedback_image() -> np.ndarray:
+    """Repeated tiles force strict matches on substituted residuals (the
+    image of tests/test_pallas_strict.py, RandomState(12345))."""
+    img = np.tile(np.random.RandomState(12345).rand(16, 16) < 0.4, (6, 6))
+    img[40:48, 40:48] ^= True
+    return img
+
+
+def check_k3(st, compress, pnm, dev) -> int:
+    """K3 == its plain version on the same CUDA tensors: all 8 outputs and
+    the residual fields, exact."""
+    fx = lambda n: pnm.read_pbm(os.path.join(FIXTURES, n))
+    cases = [("text64", fx("text64.pbm"), 8, 16),
+             ("ragged75x101", fx("ragged75x101.pbm"), 8, 24),
+             ("residual feedback", feedback_image(), 8, 40),
+             ("doc512", fx("doc512.pbm"), 16, 128),
+             ("text256 W=24", fx("text256.pbm"), 24, 48),
+             ("text64 R<W", fx("text64.pbm"), 16, 9)]
+    worst = 0
+    for name, img, W, R in cases:
+        rows, cols = img.shape
+        g = grid_of(img[None], W, dev)[0]
+        enb = torch.from_numpy(compress.enb_lut(W * W)).to(dev)
+        kw = dict(W=W, R=R, T_thresh=1, cols=cols)
+        got = st._launch(g, enb, **kw)
+        want = st.strict_analyze_plain(g, enb, **kw)
+        torch.cuda.synchronize()
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                  for a, b in zip(got, want))
+        worst = max(worst, err)
+        log(f"K3 {name}: W={W} R={R} T={g.numel() // (W * W)} "
+            f"max_abs_err={err} matches={int((got[0][:, 0] < 2).sum())}")
+        if err != 0:
+            raise AssertionError(f"K3 disagrees with its plain version on "
+                                 f"{name}")
+    return worst
+
+
+def banded_maps(search, pnm, W, R, dev):
+    doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
+    return search.window_distance_maps_banded(grid_of(doc[None], W, dev),
+                                              W, R)
+
+
+def check_k4(sw, search, pnm, dev) -> int:
+    """K4 == its plain version on doc512's banded maps."""
+    worst = 0
+    for W, R in ((40, 64), (64, 128)):
+        d, oy, ox = banded_maps(search, pnm, W, R, dev)
+        kw = dict(W=W, R=R, T_thresh=1, cols=512, invert=True)
+        nx = -(-512 // W)
+        got = sw._launch(d, oy, ox, nx, **kw)
+        want = sw.select_windows_plain(d, oy, ox, nx, **kw)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        worst = max(worst, err)
+        log(f"K4 doc512 banded maps W={W} R={R} {tuple(d.shape)}: "
+            f"max_abs_err={err} found={int(got[..., 3].sum())}")
+        if err != 0:
+            raise AssertionError(f"K4 disagrees with its plain version at "
+                                 f"W={W}")
     return worst
 
 
 def main_path(compress, archive, codec, native, pnm):
-    """Phases 4 and 5: the port's main path, as a user calls it."""
+    """The causal path, as a user calls it: one page, then a corpus."""
     doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
     p = codec.CodecParams(codec=8, W=16, R=128, strict=False)
-
-    def host(img):
-        hdr = codec._header(p, *img.shape, codec.image_crc(img))
-        return native.encode_windowed(img, hdr, 8, False, p.W,
-                                      p.resolved_T(), p.R)
+    host = lambda img: host_stream(codec, native, img, p)
 
     t0 = time.perf_counter()
     blob = compress.encode(doc, p, device="cuda")
@@ -199,8 +262,58 @@ def main_path(compress, archive, codec, native, pnm):
         f"batch 32, journal on)")
 
 
+def host_stream(codec, native, img, p) -> bytes:
+    hdr = codec._header(p, *img.shape, codec.image_crc(img))
+    return native.encode_windowed(img, hdr, 8, p.strict, p.W, p.resolved_T(),
+                                  p.R)
+
+
+def strict_path(compress, codec, native, pnm):
+    """The strict path as a user calls it: encode_strict on doc512."""
+    doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
+    p = codec.CodecParams(codec=8, W=16, R=128, strict=True)
+    t0 = time.perf_counter()
+    blob = compress.encode_strict(doc, p, device="cuda")
+    t = time.perf_counter() - t0
+    if blob != host_stream(codec, native, doc, p):
+        raise AssertionError("strict doc512 != native host strict stream")
+    if not np.array_equal(codec.decode(blob), doc):
+        raise AssertionError("strict doc512 does not round-trip")
+    log(f"strict: doc512 W=16 R=128 -> {len(blob)} B, == host strict "
+        f"encoder, round-trips ({t * 1e3:.1f} ms wall, first call)")
+
+
+def banded_path(compress, codec, native, pnm):
+    """The banded fallback as a user calls it: encode at W = 64 and 40."""
+    doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
+    for W, R in ((64, 128), (40, 64)):
+        p = codec.CodecParams(codec=8, W=W, R=R, strict=False)
+        t0 = time.perf_counter()
+        blob = compress.encode(doc, p, device="cuda")
+        t = time.perf_counter() - t0
+        if blob != host_stream(codec, native, doc, p):
+            raise AssertionError(f"doc512 W={W} != native host stream")
+        if not np.array_equal(codec.decode(blob), doc):
+            raise AssertionError(f"doc512 W={W} does not round-trip")
+        log(f"banded: doc512 W={W} R={R} -> {len(blob)} B, == host encoder, "
+            f"round-trips ({t * 1e3:.1f} ms wall, first call)")
+
+
+def drive(name, fn, _cuda, needs):
+    """Run one path with the launch counts set to 0 just before it; fail if
+    a kernel it needs was never launched.  Returns the counts."""
+    _cuda.launches.clear()
+    fn()
+    counts = dict(_cuda.launches)
+    log(f"{name} path launches: {counts}")
+    for k in needs:
+        if counts.get(k, 0) < 1:
+            raise AssertionError(f"{name} path never launched {k}")
+    return counts
+
+
 def stage_times(compress, fs, bitpack, codec, pnm, dev, gpu):
-    """Phase 6: per-stage times at 1 page and a batch of 32."""
+    """Per-stage times of the causal path at 1 page and a batch of 32."""
     doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
     p = codec.CodecParams(codec=8, W=16, R=128, strict=False)
     W, R, T_thresh = p.W, p.R, p.resolved_T()
@@ -244,7 +357,7 @@ def stage_times(compress, fs, bitpack, codec, pnm, dev, gpu):
 
 
 def kernel_times(compress, fs, dc, img, out, dev, gpu):
-    """Phase 6: each kernel beside its plain version at doc512's shapes."""
+    """K1 and K2 beside their plain versions at doc512's shapes."""
     W, R, T_thresh, rows, cols = 16, 128, 1, 512, 512
     ny = nx = 32
     E = fs.to_i32(fs._field_plane(img, W, fs.plane_height(512, W, R),
@@ -262,6 +375,34 @@ def kernel_times(compress, fs, dc, img, out, dev, gpu):
     return k1, k1p, k2, k2p
 
 
+def new_path_times(compress, codec, st, sw, search, pnm, dev, gpu):
+    """K3 and K4 beside their plain versions, and the strict and W = 64
+    encodes end to end, on doc512."""
+    doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
+    g = grid_of(doc[None], 16, dev)[0]
+    enb = torch.from_numpy(compress.enb_lut(256)).to(dev)
+    kw = dict(W=16, R=128, T_thresh=1, cols=512)
+    k3 = cuda_ms(lambda: st._launch(g, enb, **kw), 10)
+    k3p = cuda_ms(lambda: st.strict_analyze_plain(g, enb, **kw), 2)
+    t_maps = cuda_ms(lambda: banded_maps(search, pnm, 64, 128, dev), 3)
+    d, oy, ox = banded_maps(search, pnm, 64, 128, dev)
+    kw4 = dict(W=64, R=128, T_thresh=1, cols=512, invert=True)
+    k4 = cuda_ms(lambda: sw._launch(d, oy, ox, 8, **kw4), 20)
+    k4p = cuda_ms(lambda: sw.select_windows_plain(d, oy, ox, 8, **kw4), 3)
+    ps = codec.CodecParams(codec=8, W=16, R=128, strict=True)
+    e_strict = host_ms(lambda: compress.encode_strict(doc, ps, device="cuda"),
+                       5)
+    p64 = codec.CodecParams(codec=8, W=64, R=128, strict=False)
+    e64 = host_ms(lambda: compress.encode(doc, p64, device="cuda"), 5)
+    log(f"K3 (field plane + 2 x 32 launches) {k3:.4f} ms vs plain {k3p:.3f} "
+        f"ms (doc512, W=16 R=128) [{gpu}]")
+    log(f"K4 kernel {k4:.4f} ms vs plain {k4p:.3f} ms; banded maps (PyTorch) "
+        f"{t_maps:.3f} ms (doc512, W=64 R=128) [{gpu}]")
+    log(f"end to end: encode_strict doc512 W=16 R=128 {e_strict:.3f} ms; "
+        f"encode doc512 W=64 R=128 {e64:.3f} ms [{gpu}]")
+    return k3, k3p, k4, k4p
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -273,6 +414,9 @@ def main() -> int:
     from binary_image_compression_tpu_torch.ops import _cuda, bitpack
     from binary_image_compression_tpu_torch.ops import decide as dc
     from binary_image_compression_tpu_torch.ops import fused_search as fs
+    from binary_image_compression_tpu_torch.ops import search
+    from binary_image_compression_tpu_torch.ops import select_windows as sw
+    from binary_image_compression_tpu_torch.ops import strict as st
     from binary_image_compression_tpu_torch.utils import pnm
 
     dev = torch.device("cuda", 0)
@@ -295,31 +439,48 @@ def main() -> int:
 
     err1 = check_k1(fs, pnm, dev)
     err2 = check_k2(dc, compress, dev)
+    err3 = check_k3(st, compress, pnm, dev)
+    err4 = check_k4(sw, search, pnm, dev)
 
-    _cuda.launches.clear()
-    main_path(compress, archive, codec, native, pnm)
-    counts = dict(_cuda.launches)
-    log(f"main path launches: {counts}")
-    for name in ("fused_search_select", "decide_modes"):
-        if counts.get(name, 0) < 1:
-            raise AssertionError(f"main path never launched {name}")
+    causal = drive("causal", lambda: main_path(compress, archive, codec,
+                                               native, pnm),
+                   _cuda, ("fused_search_select", "decide_modes"))
+    strict_c = drive("strict", lambda: strict_path(compress, codec, native,
+                                                   pnm),
+                     _cuda, ("strict_analyze",))
+    banded = drive("banded", lambda: banded_path(compress, codec, native,
+                                                 pnm),
+                   _cuda, ("select_windows", "decide_modes"))
 
     img, _, out = stage_times(compress, fs, bitpack, codec, pnm, dev, gpu)
     k1, k1p, k2, k2p = kernel_times(compress, fs, dc, img[:1],
                                     {k: v[:1] for k, v in out.items()},
                                     dev, gpu)
+    k3, k3p, k4, k4p = new_path_times(compress, codec, st, sw, search, pnm,
+                                      dev, gpu)
     pkg = "binary_image_compression_tpu_torch/csrc/"
+    jax_ops = "binary_image_compression_tpu/ops/"
     kernels = [
         dict(name="fused_search_select", route="cuda",
              source=pkg + "fused_search.cu",
-             replaces="binary_image_compression_tpu/ops/pallas_kernels.py:541",
-             launches=counts["fused_search_select"], max_abs_err=err1,
+             replaces=jax_ops + "pallas_kernels.py:541",
+             launches=causal["fused_search_select"], max_abs_err=err1,
              ms=k1, plain_ms=k1p),
         dict(name="decide_modes", route="cuda",
              source=pkg + "decide_modes.cu",
-             replaces="binary_image_compression_tpu/ops/pallas_decide.py:100",
-             launches=counts["decide_modes"], max_abs_err=err2,
+             replaces=jax_ops + "pallas_decide.py:100",
+             launches=causal["decide_modes"], max_abs_err=err2,
              ms=k2, plain_ms=k2p),
+        dict(name="strict_analyze", route="cuda",
+             source=pkg + "strict_analyze.cu",
+             replaces=jax_ops + "pallas_strict.py:61",
+             launches=strict_c["strict_analyze"], max_abs_err=err3,
+             ms=k3, plain_ms=k3p),
+        dict(name="select_windows", route="cuda",
+             source=pkg + "select_windows.cu",
+             replaces=jax_ops + "pallas_kernels.py:407",
+             launches=banded["select_windows"], max_abs_err=err4,
+             ms=k4, plain_ms=k4p),
     ]
     log(json.dumps({"kernels": kernels}))
     log(card())

@@ -51,7 +51,7 @@ def test_cli_archive_extract(tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["--codec", "13"], "item 7"), (["--codec", "7"], "item 12"),
-    (["--mode", "strict"], "item 5")])
+    (["--codec", "4"], "item 12")])
 def test_cli_unported_options_name_the_roadmap_item(tmp_path, argv, item):
     src = os.path.join(FIX, "text64.pbm")
     with pytest.raises(SystemExit, match=item):

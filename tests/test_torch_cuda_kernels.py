@@ -1,5 +1,5 @@
-"""K1 and K2 on the card against their plain PyTorch versions, and the
-port's encode on the card against the native host encoder.
+"""K1-K4 on the card against their plain PyTorch versions, and the port's
+causal and strict encodes on the card against the native host encoder.
 
 Needs an NVIDIA GPU with nvcc (marked ``cuda``; skipped without one).  The
 file imports no JAX, so on a machine without JAX it runs on its own:
@@ -18,6 +18,9 @@ from binary_image_compression_tpu_torch.models import codec, compress
 from binary_image_compression_tpu_torch.ops import _cuda
 from binary_image_compression_tpu_torch.ops import decide as dc
 from binary_image_compression_tpu_torch.ops import fused_search as fs
+from binary_image_compression_tpu_torch.ops import search
+from binary_image_compression_tpu_torch.ops import select_windows as sw
+from binary_image_compression_tpu_torch.ops import strict
 from binary_image_compression_tpu_torch.utils import pnm
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
@@ -68,11 +71,102 @@ def test_k2_kernel_matches_plain_and_host(dev, codec_id):
     np.testing.assert_array_equal(got[:, 1].cpu().numpy(), np.stack(host))
 
 
+def test_k2_kernel_at_w64_matches_plain_and_host(dev):
+    """M = 4096 needs an enb LUT of 4097 entries (W = 64)."""
+    M, T, B = 4096, 300, 2
+    rs = np.random.RandomState(64)
+    w4 = rs.randint(0, M + 1, size=(B, T, 4)).astype(np.int32)
+    hc = (rs.rand(B, T) < 0.8).astype(np.int32)
+    il = rs.randint(1, 12, size=(B, T)).astype(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (w4, hc, il)]
+    enb = torch.from_numpy(compress.enb_lut(M)).to(dev)
+    got = torch.stack(dc.decide_modes(*args, enb, codec_id=8))
+    want = torch.stack(dc.decide_modes_plain(*args, enb, codec_id=8))
+    assert torch.equal(got, want)
+    host = compress._decide_modes(dict(weights4=w4[0], has_cands=hc[0] != 0,
+                                       idx_len=il[0]), M, 8)
+    np.testing.assert_array_equal(got[:, 0].cpu().numpy(), np.stack(host))
+
+
+def _feedback_image():
+    """Repeated tiles force matches on residuals earlier tiles substituted
+    (the image of tests/test_pallas_strict.py, RandomState(12345))."""
+    img = np.tile(np.random.RandomState(12345).rand(16, 16) < 0.4, (6, 6))
+    img[40:48, 40:48] ^= True
+    return img
+
+
+@pytest.mark.parametrize("name,W,R", [
+    ("text64.pbm", 8, 16), ("ragged75x101.pbm", 8, 24), ("feedback", 8, 40),
+    ("text256.pbm", 16, 64), ("text256.pbm", 24, 32), ("text256.pbm", 32, 48),
+    ("text64.pbm", 16, 9)])
+def test_k3_kernel_matches_plain(dev, name, W, R):
+    img = (_feedback_image() if name == "feedback"
+           else pnm.read_pbm(os.path.join(FIX, name)))
+    rows, cols = img.shape
+    grid = np.zeros((-(-rows // W) * W, -(-cols // W) * W), dtype=bool)
+    grid[:rows, :cols] = img
+    g = torch.from_numpy(grid).to(dev)
+    enb = torch.from_numpy(compress.enb_lut(W * W)).to(dev)
+    kw = dict(W=W, R=R, T_thresh=1, cols=cols)
+    before = _cuda.launches["strict_analyze"]
+    got = strict.strict_analyze(g, enb, **kw)
+    assert _cuda.launches["strict_analyze"] == before + 1
+    want = strict.strict_analyze_plain(g, enb, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("rows,cols,W,R", [(96, 128, 40, 64),
+                                           (192, 256, 64, 128),
+                                           (64, 200, 33, 40)])
+def test_k4_kernel_matches_plain(dev, rows, cols, W, R):
+    pages = np.random.RandomState(W).rand(2, rows, cols) < 0.3
+    grid = np.zeros((2, -(-rows // W) * W, -(-cols // W) * W), dtype=bool)
+    grid[:, :rows, :cols] = pages
+    d, oy, ox = search.window_distance_maps_banded(
+        torch.from_numpy(grid).to(dev), W, R)
+    kw = dict(W=W, R=R, T_thresh=1, cols=cols, invert=True)
+    nx = grid.shape[2] // W
+    before = _cuda.launches["select_windows"]
+    got = sw.select_windows(d, oy, ox, nx, **kw)
+    assert _cuda.launches["select_windows"] == before + 1
+    want = sw.select_windows_plain(d, oy, ox, nx, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(got[..., 3].sum()) > 0
+
+
+def _host(img, p):
+    hdr = codec._header(p, *img.shape, codec.image_crc(img))
+    return native.encode_windowed(img, hdr, 8, p.strict, p.W, p.resolved_T(),
+                                  p.R)
+
+
 def test_encode_on_card_matches_host_encoder(dev):
     img = pnm.read_pbm(os.path.join(FIX, "doc512.pbm"))
     p = codec.CodecParams(codec=8, W=16, R=128, strict=False)
     blob = compress.encode(img, p, device="cuda")
-    hdr = codec._header(p, *img.shape, codec.image_crc(img))
-    assert blob == native.encode_windowed(img, hdr, 8, False, 16,
-                                          p.resolved_T(), 128)
+    assert blob == _host(img, p)
     assert len(blob) == 17207
+
+
+@pytest.mark.parametrize("W,R", [(64, 128), (40, 64)])
+def test_banded_encode_on_card_matches_host_encoder(dev, W, R):
+    img = pnm.read_pbm(os.path.join(FIX, "doc512.pbm"))
+    p = codec.CodecParams(codec=8, W=W, R=R, strict=False)
+    before = dict(_cuda.launches)
+    blob = compress.encode(img, p, device="cuda")
+    assert blob == _host(img, p)
+    for k in ("select_windows", "decide_modes"):
+        assert _cuda.launches[k] == before.get(k, 0) + 1
+    np.testing.assert_array_equal(codec.decode(blob), img)
+
+
+def test_strict_encode_on_card_matches_host_encoder(dev):
+    img = pnm.read_pbm(os.path.join(FIX, "doc512.pbm"))
+    p = codec.CodecParams(codec=8, W=16, R=128, strict=True)
+    blob = compress.encode_strict(img, p, device="cuda")
+    assert blob == _host(img, p)
+    np.testing.assert_array_equal(codec.decode(blob), img)

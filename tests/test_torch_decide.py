@@ -70,3 +70,13 @@ def test_decide_rejects_unknown_device_type():
     t = torch.zeros((1, 4, 4), dtype=torch.int32, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         decide.decide_modes(t, t[..., 0], t[..., 0], t[0, 0], codec_id=8)
+
+
+def test_kernel_launcher_bounds_the_enb_lut():
+    """The kernel holds enb in shared memory: at most 4097 entries (M + 1
+    for W = 64), checked before anything reaches the card."""
+    w4 = torch.zeros((1, 4, 4), dtype=torch.int32)
+    hc = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="4097"):
+        decide._launch(w4, hc, hc, torch.zeros(4098, dtype=torch.int32),
+                       codec_id=8)

@@ -88,6 +88,6 @@ def test_fused_supported_routes_like_jax(shape):
 
 def test_unsupported_shapes_raise_not_implemented():
     img = torch.zeros((1, 80, 80), dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="banded route"):
         fs.fused_search_select(img, 2, 2, W=40, R=64, T_thresh=1, cols=80,
                                invert=True)
