@@ -1,4 +1,4 @@
-"""Command line of the PyTorch/CUDA port (codec 8, causal and strict mode).
+"""Command line of the PyTorch/CUDA port (codecs 8 and 11, BSVD learning).
 
 Counterpart of ``binary_image_compression_tpu/cli.py`` for the commands the
 port covers:
@@ -7,11 +7,15 @@ port covers:
     python -m binary_image_compression_tpu_torch decompress in.bic out.pbm
     python -m binary_image_compression_tpu_torch archive    a.pbm b.pbm out.bica
     python -m binary_image_compression_tpu_torch extract    in.bica out.pbm --page 0
+    python -m binary_image_compression_tpu_torch bsvd       in.pbm [bsvd_test flags]
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain PyTorch
-versions of the kernels.  ``--mode strict`` encodes with the residual-
-substitution kernel K3 (archives: the native host encoder per page).  Other
-codecs exit with the ROADMAP item that will port them.
+versions of the kernels.  ``compress --codec 11`` is the learned-dictionary
+patch codec; ``--mode strict`` encodes codec 8 with the residual-
+substitution kernel K3 (archives: the native host encoder per page).
+``bsvd`` is the JAX CLI's device backend (``--backend tpu``) of bsvd_test;
+the rand48 reference replay (``--backend ref``) is not ported.  Other codecs
+exit with the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -20,19 +24,27 @@ import argparse
 import os
 import sys
 
+import numpy as np
 
-def _params(args):
+# bsvd_test's -i catalog (bsvd.cpp:25-31); 3 (xor centroids) has no device
+# twin and takes the majority-vote centroids, as in the JAX CLI
+BSVD_INITS = {0: "neighbor", 1: "partition", 2: "random_centroids",
+              3: "random_centroids", 4: "graph_grow"}
+
+
+def _params(args, codecs=(8, 11)):
     from .models import codec
-    if args.codec != 8:
-        sys.exit(f"codec {args.codec} is not ported yet: codecs 4/7 are "
-                 "ROADMAP.md Queue 1 item 12, codec 13 item 7; use the JAX "
+    if args.codec not in codecs:
+        sys.exit(f"{args.cmd} --codec {args.codec} is not ported yet: "
+                 "codecs 4/7 are ROADMAP.md Queue 1 item 12, codec 13 item 7, "
+                 "codec-11 archives are left over from item 9; use the JAX "
                  "package (python -m binary_image_compression_tpu)")
-    return codec.CodecParams(codec=8, W=args.W, T=args.T, R=args.R,
+    return codec.CodecParams(codec=args.codec, W=args.W, T=args.T, R=args.R,
                              strict=args.mode == "strict")
 
 
 def _add_codec_opts(p):
-    p.add_argument("--codec", type=int, default=8, help="codec id (8 only)")
+    p.add_argument("--codec", type=int, default=8, help="codec id (8, 11)")
     p.add_argument("-W", type=int, default=16, help="tile width")
     p.add_argument("-T", type=int, default=None, help="early-exit threshold")
     p.add_argument("-R", type=int, default=128, help="search radius")
@@ -49,8 +61,13 @@ def cmd_compress(args):
                  "(ROADMAP.md Queue 1 item 8)")
     params = _params(args)
     img = pnm.read_pbm(args.input)
-    encode = compress.encode_strict if params.strict else compress.encode
-    blob = encode(img, params, device=args.device)
+    if params.codec == 11:
+        from .models import codec
+        blob = codec.encode(img, params, device=args.device)
+    elif params.strict:
+        blob = compress.encode_strict(img, params, device=args.device)
+    else:
+        blob = compress.encode(img, params, device=args.device)
     with open(args.output, "wb") as f:
         f.write(blob)
     raw = img.size // 8
@@ -70,7 +87,7 @@ def cmd_decompress(args):
 def cmd_archive(args):
     from .models import archive
     from .utils import pnm
-    params = _params(args)
+    params = _params(args, codecs=(8,))
     pages = [pnm.read_pbm(f) for f in args.inputs]
     blob = archive.encode_archive(pages, params, batch_size=args.batch_size,
                                   device=args.device,
@@ -96,6 +113,53 @@ def cmd_extract(args):
     print(f"wrote page {args.page} -> {args.output}")
 
 
+def cmd_bsvd(args):
+    """bsvd_test on the device: learn (D, A) for X, write the three PBMs
+    (and the mosaics) to --out-dir."""
+    import torch
+
+    from .models import bsvd
+    from .ops import bitpack
+    from .ops._cuda import resolve_device
+    from .utils import mosaic, pnm
+    dev = resolve_device(args.device)
+    img = pnm.read_pbm(args.input)
+    X = (bsvd.patchify_to_rows(torch.from_numpy(img), args.w) if args.I
+         else torch.from_numpy(img.astype(np.int8))).to(dev)
+    init = BSVD_INITS.get(args.i, "neighbor")
+    du = "proximus" if args.d in (1, 3) else "steepest"
+    if args.l == 4:  # MDL forward selection (bsvd.cpp:1463-1546)
+        E, D, A, _ = bsvd.learn_mdl_forward(
+            X, K0=max(1, args.k // 8), max_k=args.k, init=init,
+            dict_update=du, seed=args.r)
+    elif args.l in (1, 2, 3):  # role-switching loops
+        E, D, A, _ = bsvd.learn_alter(X, K=args.k, init=init, variant=args.l,
+                                      dict_update=du, seed=args.r)
+    elif args.l == 5:  # MDL backward selection (bsvd.cpp:1548-1663)
+        E, D, A, _ = bsvd.learn_mdl_backward(X, K0=args.k, init=init,
+                                             dict_update=du, seed=args.r)
+    elif args.l >= 6:  # MDL full search (bsvd.cpp:1665-1717)
+        E, D, A, _ = bsvd.learn_mdl_full(
+            X, Kmax=args.k, Kstep=max(1, args.k // 2), init=init,
+            dict_update=du, seed=args.r)
+    else:
+        E, D, A, _ = bsvd.learn(X, K=args.k, init=init, dict_update=du,
+                                seed=args.r)
+    E, D, A = (x.astype(bool) for x in bsvd.state_to_numpy(E, D, A))
+    out = args.out_dir
+    pnm.write_pbm(D, os.path.join(out, "dictionary.pbm"))
+    pnm.write_pbm(A, os.path.join(out, "coefficients.pbm"))
+    pnm.write_pbm(E, os.path.join(out, "residual.pbm"))
+    if args.m:
+        mos = mosaic.render_mosaic(bitpack.np_pack(D), D.shape[1])
+        pnm.write_pbm(mos, os.path.join(out, "atoms_mosaic.pbm"))
+    if args.M:
+        mos = mosaic.render_mosaic(bitpack.np_pack(E), E.shape[1])
+        pnm.write_pbm(mos, os.path.join(out, "residual_mosaic.pbm"))
+    print(f"|E| = {int(E.sum())}  (K={D.shape[0]}, M={D.shape[1]}, "
+          f"N={A.shape[0]})")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m binary_image_compression_tpu_torch",
@@ -103,13 +167,13 @@ def main(argv=None):
         formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("compress", help="PBM -> .bic (codec 8)")
+    p = sub.add_parser("compress", help="PBM -> .bic (codecs 8, 11)")
     p.add_argument("input")
     p.add_argument("output")
     _add_codec_opts(p)
     p.set_defaults(fn=cmd_compress)
 
-    p = sub.add_parser("decompress", help=".bic -> PBM (codecs 4/6/7/8)")
+    p = sub.add_parser("decompress", help=".bic -> PBM (codecs 4/6/7/8, 11)")
     p.add_argument("input")
     p.add_argument("output")
     p.set_defaults(fn=cmd_decompress)
@@ -128,6 +192,27 @@ def main(argv=None):
     p.add_argument("output")
     p.add_argument("--page", type=int, default=0)
     p.set_defaults(fn=cmd_extract)
+
+    p = sub.add_parser("bsvd", help="binary dictionary learning "
+                                    "(bsvd_test flags)")
+    p.add_argument("input")
+    p.add_argument("-i", type=int, default=0, help="initializer 0-4")
+    p.add_argument("-c", type=int, default=0,
+                   help="coef update 0-1 (reference replay only; ignored)")
+    p.add_argument("-d", type=int, default=0, help="dict update 0-3")
+    p.add_argument("-l", type=int, default=0, help="learning loop 0-6")
+    p.add_argument("-L", type=int, default=0,
+                   help="inner loop (MDL, reference replay only; ignored)")
+    p.add_argument("-w", type=int, default=16, help="patch width")
+    p.add_argument("-k", type=int, default=512, help="dictionary size")
+    p.add_argument("-r", type=int, default=34503498, help="random seed")
+    p.add_argument("-I", type=int, default=0, help="image mode (patchify)")
+    p.add_argument("-m", type=int, default=1, help="write atoms mosaic")
+    p.add_argument("-M", type=int, default=1, help="write residual mosaic")
+    p.add_argument("--out-dir", default=".")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default) or cpu")
+    p.set_defaults(fn=cmd_bsvd)
 
     args = ap.parse_args(argv)
     args.fn(args)

@@ -1,9 +1,13 @@
-"""BIC1 container: parameters, header and decode.
+"""BIC1 container: parameters, header, codec 11 and decode.
 
-Counterpart of the JAX-free part of ``binary_image_compression_tpu/models/
-codec.py``: ``CodecParams`` with ``resolved_T``, ``MAGIC``, ``HEADER_LEN``,
-``image_crc``, ``_header`` and ``decode`` for the windowed codecs 4/6/7/8,
-which goes through the shared native decoder ``bic_decode_windowed``.
+Counterpart of ``binary_image_compression_tpu/models/codec.py`` for the
+codecs the port covers: ``CodecParams`` with ``resolved_T``, ``MAGIC``,
+``HEADER_LEN``, ``image_crc``, ``_header``; ``encode`` for codec 11, the
+learned-dictionary (BSVD) patch codec (``_encode_bsvd`` :847, split here
+into the learning step and ``_write_bsvd``); and ``decode`` for the
+windowed codecs 4/6/7/8, through the shared native decoder
+``bic_decode_windowed``, and for codec 11 (``_decode_bsvd`` :908, numpy on
+the host).  Codec 8 is encoded by ``models/compress``.
 
 Container: magic "BIC1" | u32 crc32 of the packed image | u8 codec | u8
 flags (bit0 strict) | u16 W | u32 rows | u32 cols | u32 T | u32 R | payload.
@@ -19,10 +23,17 @@ from dataclasses import dataclass
 import numpy as np
 
 from .. import native
+from ..ops._cuda import resolve_device
+from ..ops.bitstream import (BitReader, BitWriter, enum_decode, enum_encode,
+                             golomb_decode, golomb_encode)
+from ..ops.entropy import GolombCoder
 
 MAGIC = b"BIC1"
 HEADER_LEN = 28
 WINDOWED_CODECS = (4, 6, 7, 8)
+BSVD_CODEC = 11
+# the largest page a header may declare (JAX codec.py:425)
+MAX_PIXELS = 2 ** 31
 
 
 @dataclass
@@ -63,22 +74,133 @@ def _header(params, rows, cols, crc: int = 0) -> bytes:
                                params.R)
 
 
+def _check_W(params) -> None:
+    """The decoder and the native runtime take W in [1, 64] (JAX
+    codec.py:269 and compress.py:40): every encoder checks it."""
+    if not 1 <= params.W <= 64:
+        raise ValueError(f"tile width W={params.W} out of range [1, 64] "
+                         f"for codec {params.codec}")
+
+
+def encode(img: np.ndarray, params: CodecParams, *, device="cuda") -> bytes:
+    """Encode one page with codec 11, learning the dictionary on `device`
+    (cuda, or cpu for the plain kernels).  Codec 8 is
+    ``compress.encode``."""
+    if params.codec != BSVD_CODEC:
+        raise NotImplementedError(
+            f"codec {params.codec}: codec.encode takes codec 11; codec 8 is "
+            "compress.encode (codecs 4/7 are ROADMAP.md Queue 1 item 12, "
+            "13 is item 7)")
+    _check_W(params)
+    return _encode_bsvd(np.asarray(img, dtype=bool), params,
+                        learn_backend=device)
+
+
+def _encode_bsvd(img, params, *, K=64, learn_backend="cuda",
+                 seed=34503498) -> bytes:
+    """Learn a GF(2) dictionary over the page's W x W patches on the device
+    `learn_backend` (``bsvd.learn``, random-centroid init from `seed`), then
+    write the stream (``_write_bsvd``)."""
+    if learn_backend == "ref":
+        raise NotImplementedError(
+            "learn_backend='ref' (the rand48 replay in bsvd_ref) is not "
+            "ported yet: ROADMAP.md Queue 1 item 11")
+    import torch
+
+    from . import bsvd
+    dev = resolve_device(learn_backend)
+    X = bsvd.patchify_to_rows(torch.from_numpy(img).to(dev), params.W)
+    E, D, A, _ = bsvd.learn(X, K=K, init="random_centroids", seed=seed)
+    E, D, A = bsvd.state_to_numpy(E, D, A)
+    return _write_bsvd(img, params, E, D, A, K)
+
+
+def _write_bsvd(img, params, E, D, A, K) -> bytes:
+    """The codec-11 stream of a learned state (JAX codec.py:884-905):
+    header | K:u16 | per atom: Golomb weight (ctx d) + enum rank | per
+    patch: Golomb #coefs (ctx c), enum rank of the coefficient set over
+    C(K, k_i), Golomb residual weight (ctx r), enum residual rank."""
+    img = np.asarray(img, dtype=bool)
+    E, D, A = (np.asarray(x, dtype=bool) for x in (E, D, A))
+    rows, cols = img.shape
+    w = BitWriter()
+    hdr = _header(params, rows, cols, image_crc(img))
+    w.write_bits(int.from_bytes(hdr, "big"), len(hdr) * 8)
+    w.write_bits(K, 16)
+    gd = GolombCoder()
+    for k in range(K):
+        wt = int(D[k].sum())
+        golomb_encode(w, wt, gd.k)
+        gd.code_sample(wt)
+        enum_encode(w, D[k])
+    gc, gr = GolombCoder(), GolombCoder()
+    for i in range(E.shape[0]):
+        nc = int(A[i].sum())
+        golomb_encode(w, nc, gc.k)
+        gc.code_sample(nc)
+        enum_encode(w, A[i])
+        wt = int(E[i].sum())
+        golomb_encode(w, wt, gr.k)
+        gr.code_sample(wt)
+        enum_encode(w, E[i])
+    return w.getvalue()
+
+
+def _decode_bsvd(r: BitReader, W, rows, cols) -> np.ndarray:
+    """Inverse of ``_write_bsvd``: each patch is (coefs * D mod 2) ^ E."""
+    ny, nx = -(-rows // W), -(-cols // W)
+    M = W * W
+    K = r.read_bits(16)
+    gd = GolombCoder()
+    D = np.zeros((K, M), dtype=bool)
+    for k in range(K):
+        wt = golomb_decode(r, gd.k)
+        gd.code_sample(wt)
+        D[k] = enum_decode(r, M, wt)
+    Dint = D.astype(np.int64)
+    gc, gr = GolombCoder(), GolombCoder()
+    out = np.zeros((ny * W, nx * W), dtype=bool)
+    for ti in range(ny):
+        for tj in range(nx):
+            nc = golomb_decode(r, gc.k)
+            gc.code_sample(nc)
+            coefs = enum_decode(r, K, nc)
+            wt = golomb_decode(r, gr.k)
+            gr.code_sample(wt)
+            E = enum_decode(r, M, wt)
+            patch = ((coefs.astype(np.int64) @ Dint) % 2 == 1) ^ E
+            out[ti * W:(ti + 1) * W, tj * W:(tj + 1) * W] = \
+                patch.reshape(W, W)
+    return out[:rows, :cols]
+
+
+def _check_header(codec: int, W: int, rows: int, cols: int) -> None:
+    """Validate header fields, which come from an untrusted stream, before
+    any decoder sizes a buffer from them or divides by W (the bounds of
+    JAX codec.py:419-433 for the codecs the port decodes)."""
+    if codec not in WINDOWED_CODECS + (BSVD_CODEC,):
+        raise NotImplementedError(
+            f"codec {codec}: this port decodes codecs 4/6/7/8 and 11 only "
+            "(the other codecs are ROADMAP.md Queue 1, items 7-8)")
+    if rows == 0 or cols == 0 or rows * cols > MAX_PIXELS:
+        raise ValueError(f"implausible dimensions {rows}x{cols}")
+    if not 1 <= W <= 64:
+        raise ValueError(f"corrupt BIC1 header: W={W} out of range [1, 64] "
+                         f"for codec {codec}")
+
+
 def decode(blob: bytes, *, verify_crc: bool = True) -> np.ndarray:
-    """Decode a BIC1 stream of codec 4/6/7/8 to bool [rows, cols]."""
+    """Decode a BIC1 stream of codec 4/6/7/8 or 11 to bool [rows, cols]."""
     if blob[:4] != MAGIC or len(blob) < HEADER_LEN:
         raise ValueError("not a BIC1 stream")
     crc, codec, _flags, W, rows, cols, _T, _R = struct.unpack(
         "<IBBHIIII", blob[4:HEADER_LEN])
-    # header fields come from an untrusted stream
-    if codec not in WINDOWED_CODECS:
-        raise NotImplementedError(
-            f"codec {codec}: this port decodes codecs 4/6/7/8 only (the "
-            "other codecs are ROADMAP.md Queue 1, items 7-9)")
-    if rows == 0 or cols == 0 or rows * cols > 2 ** 30:
-        raise ValueError(f"implausible dimensions {rows}x{cols}")
-    if not 1 <= W <= 64:
-        raise ValueError(f"corrupt BIC1 header: W={W} out of range [1, 64]")
-    out = native.decode_windowed(blob, rows, cols)
+    _check_header(codec, W, rows, cols)
+    if codec == BSVD_CODEC:
+        out = _decode_bsvd(BitReader(blob, bit_offset=HEADER_LEN * 8), W,
+                           rows, cols)
+    else:
+        out = native.decode_windowed(blob, rows, cols)
     if verify_crc and image_crc(out) != crc:
         raise ValueError("BIC1 integrity check failed (corrupt stream)")
     return out

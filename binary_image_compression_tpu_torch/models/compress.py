@@ -1,7 +1,7 @@
 """The codec-8 encoders: device analysis + native record packing.
 
 Counterpart of ``binary_image_compression_tpu/models/compress.py``:
-``_check_W`` (:40), ``encode_analyze`` (:70, fused and banded variants),
+``encode_analyze`` (:70, fused and banded variants),
 ``_finish_selection`` (:186), ``_finish_selection_fields`` (:232),
 ``encode_analyze_decided`` (:278), ``_split_decided`` / ``_pack_decided``
 (:322-356), ``_decide_modes`` (:359), ``encode`` (:397), ``encode_batch``
@@ -36,40 +36,24 @@ import torch
 from .. import native
 from ..ops import (bitpack, decide, fused_search, search, select_windows,
                    strict)
+from ..ops._cuda import resolve_device
 from ..ops.bitstream import BitWriter, enum_encode, enum_nbits, golomb_encode
 from ..ops.entropy import GolombCoder
-from .codec import CodecParams, _header, image_crc
+from .codec import CodecParams, _check_W, _header, image_crc
 
 # pages the native host encoder took: causal R < W, strict shapes outside
 # strict.supported, strict archive pages (not a device launch)
 host_route = collections.Counter()
 
 
-def _check_W(params):
-    """The native runtime and the decoder reject W outside [1, 64]."""
-    if not 1 <= params.W <= 64:
-        raise ValueError(f"tile width W={params.W} out of range [1, 64]")
-
-
 def _check_causal8(params):
     if params.codec != 8:
         raise NotImplementedError(
-            f"codec {params.codec}: this port encodes codec 8 only (codecs "
-            "4/7 are ROADMAP.md Queue 1 item 12; 13 is item 7)")
+            f"codec {params.codec}: compress encodes codec 8 only (codec 11 "
+            "is codec.encode; codecs 4/7 are ROADMAP.md Queue 1 item 12; 13 "
+            "is item 7)")
     if params.strict:
         raise ValueError("strict mode is encoded by compress.encode_strict")
-
-
-def resolve_device(device) -> torch.device:
-    """The torch device to run on; CUDA requested and absent raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA device requested but torch.cuda is not "
-                           "available (pass device='cpu' to run the plain "
-                           "PyTorch versions)")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def _med_tiles(P: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,9 @@ as ``c_void_p``, launches on that stream and returns ``cudaGetLastError()``;
 failed build or a failed launch raises.
 
 ``launches`` counts kernel launches by wrapper name; a wrapper adds one
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else.  ``resolve_device`` turns
+the entry points' ``device`` argument into a torch device, refusing CUDA
+when there is none.
 """
 
 from __future__ import annotations
@@ -115,6 +117,23 @@ def _declare(lib) -> None:
     lib.bic_select_windows.argtypes = [p] * 4 + [i] * 14 + [p]
     lib.bic_strict_analyze.restype = i
     lib.bic_strict_analyze.argtypes = [p] * 6 + [i] * 10 + [p]
+    lib.bic_packed_dist_matrix.restype = i
+    lib.bic_packed_dist_matrix.argtypes = [p] * 3 + [i] * 3 + [p]
+    lib.bic_packed_row_weight.restype = i
+    lib.bic_packed_row_weight.argtypes = [p] * 2 + [i] * 2 + [p]
+
+
+def resolve_device(device):
+    """The torch device to run on; CUDA requested and absent raises."""
+    import torch
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA device requested but torch.cuda is not "
+                           "available (pass device='cpu' to run the plain "
+                           "PyTorch versions)")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
 
 
 def stream(device) -> ctypes.c_void_p:

@@ -1,7 +1,7 @@
 """MSB-first 32-bit packed bit rows, in torch and numpy.
 
 Counterpart of ``binary_image_compression_tpu/ops/bitpack.py`` (``nwords``,
-``pack``, ``unpack``, ``np_pack``, ``np_unpack``).  Bit j of a row lands in
+``pack``, ``unpack``, ``patchify``, ``np_pack``, ``np_unpack``).  Bit j of a row lands in
 word j // 32 at bit 31 - j % 32, so serialized big-endian words are PBM P4
 raster bytes.
 
@@ -72,6 +72,20 @@ def fields_to_words(fields: torch.Tensor, W: int) -> torch.Tensor:
     shifts = torch.arange(W - 1, -1, -1, device=fields.device)
     bits = (fields.to(torch.int64)[..., None] >> shifts) & 1
     return pack(bits.reshape(fields.shape[:-1] + (W * W,)))
+
+
+def patchify(img_bits: torch.Tensor, W: int) -> torch.Tensor:
+    """[..., rows, cols] -> [..., Ny*Nx, W, W] tile grid in raster order,
+    rows and cols padded with zeros up to multiples of W (JAX
+    ``bitpack.patchify``)."""
+    rows, cols = img_bits.shape[-2:]
+    ny, nx = -(-rows // W), -(-cols // W)
+    pr, pc = ny * W - rows, nx * W - cols
+    if pr or pc:
+        img_bits = torch.nn.functional.pad(img_bits, (0, pc, 0, pr))
+    lead = img_bits.shape[:-2]
+    t = img_bits.reshape(lead + (ny, W, nx, W)).transpose(-3, -2)
+    return t.reshape(lead + (ny * nx, W, W))
 
 
 def to_i32(words: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,11 @@
-"""MSB-first bit writing, Golomb-Rice and exact enumerative coding.
+"""MSB-first bit IO, Golomb-Rice and exact enumerative coding.
 
 Counterpart of ``binary_image_compression_tpu/ops/bitstream.py``
-(``BitWriter``, ``golomb_encode``, ``_binom_table``, ``enum_nbits``,
-``enum_rank``, ``enum_encode``).  Pure Python: the plain version of the
-native record packer (``models/compress.pack_records_plain``).
+(``BitWriter``, ``BitReader``, ``golomb_encode``, ``golomb_decode``,
+``_binom_table``, ``enum_nbits``, ``enum_rank``, ``enum_unrank``,
+``enum_encode``, ``enum_decode``).  Pure Python: the plain version of the
+native record packer (``models/compress.pack_records_plain``) and the
+codec-11 stream writer and reader (``models/codec``).
 """
 
 from __future__ import annotations
@@ -45,11 +47,44 @@ class BitWriter:
         return bytes(self._out)
 
 
+class BitReader:
+    """MSB-first bit reader over bytes."""
+
+    def __init__(self, data: bytes, bit_offset: int = 0):
+        self._data = data
+        self._pos = bit_offset
+
+    def read_bits(self, nbits: int) -> int:
+        if nbits == 0:
+            return 0
+        p = self._pos
+        first, last = p >> 3, (p + nbits - 1) >> 3
+        if last >= len(self._data):
+            raise IndexError("read past the end of the stream")
+        chunk = int.from_bytes(self._data[first:last + 1], "big")
+        span = (last - first + 1) * 8
+        self._pos = p + nbits
+        return (chunk >> (span - (p & 7) - nbits)) & ((1 << nbits) - 1)
+
+    def read_unary_zeros(self) -> int:
+        """Count zeros up to (and consuming) the terminating 1 bit."""
+        n = 0
+        while self.read_bits(1) == 0:
+            n += 1
+        return n
+
+
 def golomb_encode(w: BitWriter, u: int, k: int) -> None:
     """Low k bits of u, then (u >> k) zeros, then a 1 (GolombCoder.cpp:21-25)."""
     w.write_bits(u, k)
     w.write_unary_zeros(u >> k)
     w.write_bits(1, 1)
+
+
+def golomb_decode(r: BitReader, k: int) -> int:
+    low = r.read_bits(k)
+    high = r.read_unary_zeros()
+    return (high << k) | low
 
 
 @lru_cache(maxsize=None)
@@ -95,3 +130,38 @@ def enum_encode(w: BitWriter, bits: np.ndarray) -> None:
         chunk_bits = min(32, nb - shift)
         if chunk_bits > 0:
             w.write_bits((rank >> shift) & 0xFFFFFFFF, chunk_bits)
+
+
+def enum_unrank(rank: int, n: int, w: int) -> np.ndarray:
+    """Inverse of ``enum_rank``: the sorted 1-positions of rank `rank`."""
+    C = _binom_table(n)
+    positions = np.empty(w, dtype=np.int64)
+    q = 0
+    rem = w
+    for i in range(w):
+        while True:
+            c = C[n - 1 - q][rem - 1]
+            if rank < c:
+                break
+            rank -= c
+            q += 1
+        positions[i] = q
+        q += 1
+        rem -= 1
+    return positions
+
+
+def enum_decode(r: BitReader, n: int, weight: int) -> np.ndarray:
+    """Read a weight-`weight` 0/1 vector of length n written by
+    ``enum_encode``."""
+    nb = enum_nbits(n, weight)
+    rank = 0
+    remaining = nb
+    while remaining > 0:
+        take = min(32, remaining)
+        rank = (rank << take) | r.read_bits(take)
+        remaining -= take
+    bits = np.zeros(n, dtype=bool)
+    if weight:
+        bits[enum_unrank(rank, n, weight)] = True
+    return bits

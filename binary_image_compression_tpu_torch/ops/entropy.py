@@ -1,14 +1,58 @@
-"""Adaptive Golomb-Rice context.
+"""Codelengths and the adaptive Golomb-Rice context.
 
-Counterpart of ``GolombCoder`` in ``binary_image_compression_tpu/ops/
-entropy.py`` (reference Golomb.h:12-29, GolombCoder.cpp:13-34).
+Counterpart of ``lnchoose``, ``enum_codelength``, ``universal_codelength``,
+``universal_codelength_jnp`` (as ``universal_codelength_t``) and
+``GolombCoder`` in ``binary_image_compression_tpu/ops/entropy.py``
+(reference coding.cpp:19-32, Golomb.h:12-29, GolombCoder.cpp:13-34).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
+import torch
+
+COSMOS_LOG2E = 1.442695040888963387004650940070860087872  # coding.h:10
+
 _U32 = 0xFFFFFFFF
+
+
+def lnchoose(n: int, r: int) -> float:
+    """ln C(n, r) (gsl_sf_lnchoose)."""
+    if r > n:
+        raise ValueError("r > n")
+    if r == n or r == 0:
+        return 0.0
+    return math.lgamma(n + 1) - math.lgamma(r + 1) - math.lgamma(n - r + 1)
+
+
+def enum_codelength(n: int, r: int) -> float:
+    """log2 C(n, r) in bits; 0 for r == 0 (reference enumL, coding.cpp:19)."""
+    return lnchoose(n, r) * COSMOS_LOG2E if r > 0 else 0.0
+
+
+def universal_codelength(n: int, r: int) -> float:
+    """n*H(r/n) + 0.5*log2(n) (reference coding.cpp:24-32)."""
+    if 0 < r < n:
+        p1 = r / n
+        return n * (-p1 * math.log2(p1) - (1.0 - p1) * math.log2(1.0 - p1)) \
+            + 0.5 * math.log2(n)
+    return 0.5 * math.log2(n)
+
+
+def universal_codelength_t(n, r) -> torch.Tensor:
+    """Elementwise ``universal_codelength`` in float32, the twin of JAX's
+    ``universal_codelength_jnp``: the MDL drivers compare these float32
+    values, so the port computes them in the same type and order."""
+    r = torch.as_tensor(r).to(torch.float32)
+    n = torch.as_tensor(n, dtype=torch.float32, device=r.device)
+    p = r / n
+    one = torch.ones((), dtype=torch.float32, device=r.device)
+    h = -p * torch.log2(torch.where(p > 0, p, one)) \
+        - (1 - p) * torch.log2(torch.where(p < 1, 1 - p, one))
+    mid = n * h + 0.5 * torch.log2(n)
+    return torch.where((r > 0) & (r < n), mid, 0.5 * torch.log2(n))
 
 
 @dataclass

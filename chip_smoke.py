@@ -4,13 +4,16 @@
 
 Builds the native host library and the CUDA kernels from this checkout,
 holds each kernel (K1 search, K2 decision, K3 strict analysis, K4 banded
-selection) against its plain PyTorch version on the card, then drives the
-port's three codec-8 paths, each with the launch counts reset just before
-it and read just after: the causal encode (one 512x512 page, then a
-64-page corpus through the archive writer), strict mode (``encode_strict``)
-and the banded fallback (``encode`` at W = 64 and W = 40).  Every stream is
-checked byte for byte against the native host encoder and round-tripped;
-stages and kernels are timed with CUDA events.  Imports no JAX.
+selection, K5 packed distances, K6 packed row weights) against its plain
+PyTorch version on the card, then drives the port's four paths, each with
+the launch counts reset just before it and read just after: the causal
+encode (one 512x512 page, then a 64-page corpus through the archive
+writer), strict mode (``encode_strict``), the banded fallback (``encode``
+at W = 64 and W = 40) and BSVD (codec 11 on one page, ``learn`` on both
+distance routes, the ``bsvd`` CLI at K = 512).  Every codec-8 stream is
+checked byte for byte against the native host encoder, the codec-11 stream
+against the same encode on the CPU, and each is round-tripped; stages and
+kernels are timed with CUDA events.  Imports no JAX.
 
 Any failure raises and exits non-zero; without CUDA it exits 1 at once.  The
 last line of standard output is a JSON object:
@@ -299,6 +302,224 @@ def banded_path(compress, codec, native, pnm):
             f"round-trips ({t * 1e3:.1f} ms wall, first call)")
 
 
+# (N, M, K) of K5's checks: tests/test_pallas.py's shapes, ragged edges,
+# codec 11 on doc512 (W=16, K=64), the bsvd CLI (-k 512, image and matrix
+# mode, and -w 48: M = 2304), scripts/bench_bsvd.py's shapes, and rows wider
+# than JAX's 2048-bit packed bound
+K5_CASES = [(77, 130, 33), (300, 64, 16),
+            (1, 1, 1), (1, 32, 1), (33, 32, 65), (31, 100, 1), (1, 200, 70),
+            (1024, 256, 64), (1024, 256, 512), (512, 512, 512),
+            (121, 2304, 512),
+            (4096, 256, 256), (4096, 1024, 256), (2048, 2048, 128),
+            (64, 2080, 40), (256, 4096, 64)]
+BENCH_BSVD = ((1024, 256, 64), (4096, 256, 256), (4096, 1024, 256),
+              (2048, 2048, 128))
+
+
+def dense_rows(N, M, K, dev):
+    """bench_bsvd.py's operands: 0/1 int8 E [N, M] and D [K, M], density
+    0.3, from RandomState(N + M + K)."""
+    rs = np.random.RandomState(N + M + K)
+    E = torch.from_numpy((rs.rand(N, M) < 0.3).astype(np.int8)).to(dev)
+    D = torch.from_numpy((rs.rand(K, M) < 0.3).astype(np.int8)).to(dev)
+    return E, D
+
+
+def check_k5(pd, bsvd, dev) -> int:
+    """K5 == its plain version on the same CUDA tensors, and == the float32
+    matmul route, exact, on every K5_CASES shape."""
+    worst = 0
+    for N, M, K in K5_CASES:
+        E, D = dense_rows(N, M, K, dev)
+        a, b = bsvd._pack(E), bsvd._pack(D)
+        got = pd._launch_dist(a, b)
+        want = pd.packed_dist_matrix_plain(a, b)
+        mxu = bsvd.distances_to_atoms(E, D, "mxu")
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        err_mxu = float((got.to(torch.float32) - mxu).abs().max())
+        worst = max(worst, err)
+        log(f"K5 [{N}, {a.shape[1]}] x [{K}, {a.shape[1]}] (M={M}): "
+            f"max_abs_err={err}, vs mxu route {err_mxu}")
+        if err != 0 or err_mxu != 0:
+            raise AssertionError(f"K5 disagrees at N={N} M={M} K={K}")
+    return worst
+
+
+def check_k6(pd, bsvd, dev) -> int:
+    """K6 == its plain version on the rows of K5_CASES."""
+    worst = 0
+    for N, M, K in K5_CASES:
+        E, _ = dense_rows(N, M, K, dev)
+        a = bsvd._pack(E)
+        got = pd._launch_weight(a)
+        want = pd.packed_row_weight_plain(a)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        worst = max(worst, err)
+        if err != 0 or not torch.equal(got.to(torch.int64), E.sum(dim=1)):
+            raise AssertionError(f"K6 disagrees at N={N} M={M}")
+    log(f"K6 on the {len(K5_CASES)} K5 row sets: max_abs_err={worst}")
+    return worst
+
+
+def bsvd_path(codec, bsvd, cli, pnm, dev):
+    """BSVD as a user calls it: codec 11 on doc512, learn on both distance
+    routes, and the bsvd CLI at K = 512."""
+    doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
+    p = codec.CodecParams(codec=11, W=16, T=0, R=0)
+    t0 = time.perf_counter()
+    blob = codec.encode(doc, p, device="cuda")
+    t = time.perf_counter() - t0
+    if blob != codec.encode(doc, p, device="cpu"):
+        raise AssertionError("codec 11 doc512: cuda stream != cpu stream")
+    if not np.array_equal(codec.decode(blob), doc):
+        raise AssertionError("codec 11 doc512 does not round-trip")
+    log(f"codec 11: doc512 W=16 K=64 -> {len(blob)} B, == the CPU encode, "
+        f"round-trips ({t * 1e3:.1f} ms wall, first call)")
+
+    X = bsvd.patchify_to_rows(torch.from_numpy(doc).to(dev), 16)
+    packed = bsvd.learn(X, K=64, init="random_centroids")
+    mxu = bsvd.learn(X, K=64, init="random_centroids", distances="mxu")
+    if packed[3] != mxu[3] or not all(torch.equal(a, b) for a, b in
+                                      zip(packed[:3], mxu[:3])):
+        raise AssertionError("learn: packed and mxu routes differ")
+    log(f"learn doc512 W=16 K=64: packed == mxu route (E, D, A), "
+        f"{packed[3]} iterations, |E| = {int(packed[0].sum())}")
+
+    out = os.path.join(REPO, "build", "chip_smoke_bsvd")
+    os.makedirs(out, exist_ok=True)
+    for f in os.listdir(out):
+        os.remove(os.path.join(out, f))
+    t0 = time.perf_counter()
+    cli.main(["bsvd", os.path.join(FIXTURES, "doc512.pbm"), "-I", "1", "-w",
+              "16", "-k", "512", "-i", "2", "--out-dir", out])
+    t = time.perf_counter() - t0
+    got = {n: pnm.read_pbm(os.path.join(out, n + ".pbm"))
+           for n in ("dictionary", "coefficients", "residual")}
+    D, A, E = (torch.from_numpy(got[n]).to(dev, torch.int8)
+               for n in ("dictionary", "coefficients", "residual"))
+    if D.shape != (512, 256) or A.shape != (1024, 512):
+        raise AssertionError(f"bsvd CLI wrote D {tuple(D.shape)}, "
+                             f"A {tuple(A.shape)}")
+    if not torch.equal(E, bsvd.residual(X, D, A)):
+        raise AssertionError("bsvd CLI: E != residual(X, D, A)")
+    log(f"bsvd CLI doc512 -I 1 -w 16 -k 512 -i 2: wrote the three PBMs, "
+        f"E == residual(X, D, A), |E| = {int(E.sum())} ({t:.2f} s wall)")
+
+
+class _Timed:
+    """Sum the synchronised host time of calls to module functions while
+    inside the `with` block (restores them on exit)."""
+
+    def __init__(self, mod, names):
+        self.mod, self.names = mod, names
+        self.ms = dict.fromkeys(names, 0.0)
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.mod, n) for n in self.names}
+        for n in self.names:
+            setattr(self.mod, n, self._wrap(n, self.orig[n]))
+        return self
+
+    def _wrap(self, n, fn):
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.ms[n] += (time.perf_counter() - t0) * 1e3
+            return r
+        return timed
+
+    def __exit__(self, *exc):
+        for n in self.names:
+            setattr(self.mod, n, self.orig[n])
+
+
+def device_ms(fn, kernel: str, reps: int = 20):
+    """Mean device time of the CUDA kernel named `kernel` over reps calls of
+    fn(), from torch.profiler; None if the trace shows no device time."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if kernel in e.key)
+    return us / 1e3 / reps if us else None
+
+
+def bsvd_times(codec, bsvd, pd, pnm, dev, gpu):
+    """K5 beside its plain version and the matmul route, K6 beside its plain
+    version, codec 11 end to end split into learning and the writer, and
+    learning on both distance routes with the atom loop's and the pursuit's
+    shares."""
+    k5 = {}
+    for N, M, K in BENCH_BSVD:
+        E, D = dense_rows(N, M, K, dev)
+        a, b = bsvd._pack(E), bsvd._pack(D)
+        t = dict(
+            k5=cuda_ms(lambda: pd._launch_dist(a, b), 20),
+            plain=cuda_ms(lambda: pd.packed_dist_matrix_plain(a, b), 3),
+            mxu=cuda_ms(lambda: bsvd.distances_to_atoms(E, D, "mxu"), 20),
+            route=cuda_ms(lambda: bsvd.distances_to_atoms(E, D, "packed"),
+                          20))
+        k5[(N, M, K)] = t
+        log(f"K5 N={N} M={M} K={K}: kernel {t['k5']:.4f} ms, plain "
+            f"{t['plain']:.3f} ms, mxu route (f32 matmul) {t['mxu']:.4f} ms, "
+            f"packed route (pack + K5) {t['route']:.4f} ms [{gpu}]")
+        dk = device_ms(lambda: pd._launch_dist(a, b), "packed_dist_kernel")
+        log(f"  K5 device time alone (torch.profiler, mean of 20): "
+            f"{'not measured' if dk is None else f'{dk:.4f} ms'} [{gpu}]")
+    E, _ = dense_rows(1024, 256, 64, dev)
+    a = bsvd._pack(E)
+    k6 = cuda_ms(lambda: pd._launch_weight(a), 20)
+    k6p = cuda_ms(lambda: pd.packed_row_weight_plain(a), 5)
+    dk = device_ms(lambda: pd._launch_weight(a), "packed_weight_kernel")
+    log(f"K6 [1024, 8]: kernel {k6:.4f} ms, plain {k6p:.4f} ms; device "
+        f"time alone {'not measured' if dk is None else f'{dk:.4f} ms'} "
+        f"[{gpu}]")
+
+    doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
+    p = codec.CodecParams(codec=11, W=16, T=0, R=0)
+    X = bsvd.patchify_to_rows(torch.from_numpy(doc).to(dev), 16)
+
+    def learn():
+        E, D, A, _ = bsvd.learn(X, K=64, init="random_centroids")
+        return bsvd.state_to_numpy(E, D, A)
+    state = learn()
+    blob = codec._write_bsvd(doc, p, *state, 64)
+    t_learn = host_ms(learn, 5)
+    t_write = host_ms(lambda: codec._write_bsvd(doc, p, *state, 64), 5)
+    t_enc = host_ms(lambda: codec.encode(doc, p, device="cuda"), 5)
+    t_dec = host_ms(lambda: codec.decode(blob), 5)
+    log(f"codec 11 doc512 W=16 K=64 (host clock, mean of 5): encode "
+        f"{t_enc:.3f} ms; of it, learning {t_learn:.3f} ms and _write_bsvd "
+        f"{t_write:.3f} ms timed alone; decode {t_dec:.3f} ms [{gpu}]")
+    for K in (64, 512):
+        for route in ("packed", "mxu"):
+            with _Timed(bsvd, ("update_coefficients",
+                               "update_dictionary_steepest")) as tm:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, _, _, iters = bsvd.learn(X, K=K, init="random_centroids",
+                                            distances=route)
+                torch.cuda.synchronize()
+                total = (time.perf_counter() - t0) * 1e3
+            pursuit = tm.ms["update_coefficients"]
+            atoms = tm.ms["update_dictionary_steepest"]
+            log(f"learn doc512 W=16 K={K} distances={route}: {total:.3f} ms, "
+                f"{iters} iterations; atom loop (update_dictionary_steepest) "
+                f"{atoms:.3f} ms ({100 * atoms / total:.1f} %), pursuit "
+                f"{pursuit:.3f} ms ({100 * pursuit / total:.1f} %) [{gpu}]")
+    c11 = k5[(1024, 256, 64)]
+    return c11["k5"], c11["plain"], k6, k6p
+
+
 def drive(name, fn, _cuda, needs):
     """Run one path with the launch counts set to 0 just before it; fail if
     a kernel it needs was never launched.  Returns the counts."""
@@ -408,12 +629,13 @@ def main() -> int:
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from binary_image_compression_tpu_torch import native
-    from binary_image_compression_tpu_torch.models import (archive, codec,
-                                                           compress)
+    from binary_image_compression_tpu_torch import cli, native
+    from binary_image_compression_tpu_torch.models import (archive, bsvd,
+                                                           codec, compress)
     from binary_image_compression_tpu_torch.ops import _cuda, bitpack
     from binary_image_compression_tpu_torch.ops import decide as dc
     from binary_image_compression_tpu_torch.ops import fused_search as fs
+    from binary_image_compression_tpu_torch.ops import packed_dist as pd
     from binary_image_compression_tpu_torch.ops import search
     from binary_image_compression_tpu_torch.ops import select_windows as sw
     from binary_image_compression_tpu_torch.ops import strict as st
@@ -441,6 +663,8 @@ def main() -> int:
     err2 = check_k2(dc, compress, dev)
     err3 = check_k3(st, compress, pnm, dev)
     err4 = check_k4(sw, search, pnm, dev)
+    err5 = check_k5(pd, bsvd, dev)
+    err6 = check_k6(pd, bsvd, dev)
 
     causal = drive("causal", lambda: main_path(compress, archive, codec,
                                                native, pnm),
@@ -451,6 +675,8 @@ def main() -> int:
     banded = drive("banded", lambda: banded_path(compress, codec, native,
                                                  pnm),
                    _cuda, ("select_windows", "decide_modes"))
+    bsvd_c = drive("bsvd", lambda: bsvd_path(codec, bsvd, cli, pnm, dev),
+                   _cuda, ("packed_dist_matrix", "packed_row_weight"))
 
     img, _, out = stage_times(compress, fs, bitpack, codec, pnm, dev, gpu)
     k1, k1p, k2, k2p = kernel_times(compress, fs, dc, img[:1],
@@ -458,6 +684,7 @@ def main() -> int:
                                     dev, gpu)
     k3, k3p, k4, k4p = new_path_times(compress, codec, st, sw, search, pnm,
                                       dev, gpu)
+    k5, k5p, k6, k6p = bsvd_times(codec, bsvd, pd, pnm, dev, gpu)
     pkg = "binary_image_compression_tpu_torch/csrc/"
     jax_ops = "binary_image_compression_tpu/ops/"
     kernels = [
@@ -481,6 +708,16 @@ def main() -> int:
              replaces=jax_ops + "pallas_kernels.py:407",
              launches=banded["select_windows"], max_abs_err=err4,
              ms=k4, plain_ms=k4p),
+        dict(name="packed_dist_matrix", route="cuda",
+             source=pkg + "packed_dist.cu",
+             replaces=jax_ops + "pallas_kernels.py:45",
+             launches=bsvd_c["packed_dist_matrix"], max_abs_err=err5,
+             ms=k5, plain_ms=k5p),
+        dict(name="packed_row_weight", route="cuda",
+             source=pkg + "packed_dist.cu",
+             replaces=jax_ops + "pallas_kernels.py:728",
+             launches=bsvd_c["packed_row_weight"], max_abs_err=err6,
+             ms=k6, plain_ms=k6p),
     ]
     log(json.dumps({"kernels": kernels}))
     log(card())

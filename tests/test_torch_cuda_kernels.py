@@ -1,5 +1,6 @@
-"""K1-K4 on the card against their plain PyTorch versions, and the port's
-causal and strict encodes on the card against the native host encoder.
+"""K1-K6 on the card against their plain PyTorch versions, the port's
+causal and strict encodes on the card against the native host encoder, and
+codec 11 and BSVD learning on the card against the CPU run.
 
 Needs an NVIDIA GPU with nvcc (marked ``cuda``; skipped without one).  The
 file imports no JAX, so on a machine without JAX it runs on its own:
@@ -14,10 +15,11 @@ import pytest
 import torch
 
 from binary_image_compression_tpu_torch import native
-from binary_image_compression_tpu_torch.models import codec, compress
+from binary_image_compression_tpu_torch.models import bsvd, codec, compress
 from binary_image_compression_tpu_torch.ops import _cuda
 from binary_image_compression_tpu_torch.ops import decide as dc
 from binary_image_compression_tpu_torch.ops import fused_search as fs
+from binary_image_compression_tpu_torch.ops import packed_dist
 from binary_image_compression_tpu_torch.ops import search
 from binary_image_compression_tpu_torch.ops import select_windows as sw
 from binary_image_compression_tpu_torch.ops import strict
@@ -170,3 +172,67 @@ def test_strict_encode_on_card_matches_host_encoder(dev):
     blob = compress.encode_strict(img, p, device="cuda")
     assert blob == _host(img, p)
     np.testing.assert_array_equal(codec.decode(blob), img)
+
+
+@pytest.mark.parametrize("n,k,words", [(1, 1, 1), (33, 65, 1), (77, 33, 5),
+                                       (1024, 64, 8), (512, 512, 16),
+                                       (100, 40, 70), (64, 40, 65),
+                                       (64, 40, 128)])
+def test_k5_k6_kernels_match_plain(dev, n, k, words):
+    rs = np.random.RandomState(n + k + words)
+    a = torch.from_numpy(rs.randint(-2 ** 31, 2 ** 31, size=(n, words),
+                                    dtype=np.int64).astype(np.int32)).to(dev)
+    b = torch.from_numpy(rs.randint(-2 ** 31, 2 ** 31, size=(k, words),
+                                    dtype=np.int64).astype(np.int32)).to(dev)
+    before = dict(_cuda.launches)
+    d = packed_dist.packed_dist_matrix(a, b)
+    w = packed_dist.packed_row_weight(a)
+    for name in ("packed_dist_matrix", "packed_row_weight"):
+        assert _cuda.launches[name] == before.get(name, 0) + 1
+    torch.cuda.synchronize()
+    assert torch.equal(d, packed_dist.packed_dist_matrix_plain(a, b))
+    assert torch.equal(w, packed_dist.packed_row_weight_plain(a))
+
+
+def test_codec11_on_card_matches_cpu(dev):
+    img = pnm.read_pbm(os.path.join(FIX, "ragged75x101.pbm"))
+    p = codec.CodecParams(codec=11, W=8, T=0, R=0)
+    before = dict(_cuda.launches)
+    blob = codec.encode(img, p, device="cuda")
+    for name in ("packed_dist_matrix", "packed_row_weight"):
+        assert _cuda.launches[name] > before.get(name, 0)
+    assert blob == codec.encode(img, p, device="cpu")
+    np.testing.assert_array_equal(codec.decode(blob), img)
+
+
+@pytest.mark.parametrize("m", [2080, 4096])
+def test_wide_pursuit_on_card_launches_k5(dev, m):
+    """Rows wider than JAX's packed bound (2048 bits) still take K5."""
+    rs = np.random.RandomState(m)
+    D = rs.rand(8, m) < 0.25
+    A = rs.rand(48, 8) < 0.15
+    E = ((A.astype(np.int64) @ D.astype(np.int64)) % 2 == 1) ^ (
+        rs.rand(48, m) < 0.3)
+    args = [torch.from_numpy(x.astype(np.int8)) for x in (E, D, A)]
+    want = bsvd.update_coefficients(*args)
+    before = dict(_cuda.launches)
+    got = bsvd.update_coefficients(*(x.to(dev) for x in args))
+    assert _cuda.launches["packed_dist_matrix"] > before.get(
+        "packed_dist_matrix", 0)
+    assert _cuda.launches["packed_row_weight"] == before.get(
+        "packed_row_weight", 0) + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int(want[2]) > 0
+
+
+@pytest.mark.parametrize("distances", ["packed", "mxu"])
+def test_bsvd_learn_on_card_matches_cpu(dev, distances):
+    img = pnm.read_pbm(os.path.join(FIX, "text256.pbm"))
+    X = bsvd.patchify_to_rows(torch.from_numpy(img), 16)
+    want = bsvd.learn(X, K=32, init="random_centroids")
+    got = bsvd.learn(X.to(dev), K=32, init="random_centroids",
+                     distances=distances)
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g.cpu(), w)
+    assert got[3] == want[3]
