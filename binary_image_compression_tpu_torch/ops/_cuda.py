@@ -116,7 +116,7 @@ def _declare(lib) -> None:
     lib.bic_select_windows.restype = i
     lib.bic_select_windows.argtypes = [p] * 4 + [i] * 14 + [p]
     lib.bic_strict_analyze.restype = i
-    lib.bic_strict_analyze.argtypes = [p] * 6 + [i] * 10 + [p]
+    lib.bic_strict_analyze.argtypes = [p] * 7 + [i] * 14 + [p]
     lib.bic_packed_dist_matrix.restype = i
     lib.bic_packed_dist_matrix.argtypes = [p] * 3 + [i] * 3 + [p]
     lib.bic_packed_row_weight.restype = i

@@ -33,7 +33,12 @@ reports band cell 0's distance and inversion there instead; the stream
 reads neither.)
 
 ``strict_analyze`` launches ``csrc/strict_analyze.cu`` for CUDA tensors and
-runs ``strict_analyze_plain`` for CPU tensors.
+runs ``strict_analyze_plain`` for CPU tensors.  ``_plan`` owns the
+kernel's launch geometry: how each tile row's grid-2 rows are sliced
+across blocks, and whether the serial pass keeps its live band in a
+shared-memory ring (and of what size) or in global memory; every shape
+``supported`` takes has one.  The kernel only checks that the plan covers
+what it reads.
 """
 
 from __future__ import annotations
@@ -51,6 +56,11 @@ from .fused_search import (INF, _field_plane, _packed_decode,
 
 OUT_FIELDS = ("mode", "rank", "inv", "weight", "k_used", "n_cands",
               "idx_len", "bestd")
+
+RUN2 = 8             # slices of whole 8-row runs, the grid-2 kernel's items
+G2_BLOCKS = 264      # grid-2 blocks to aim for per tile row: 2 per H100 SM
+SMEM_MAX = 232448    # shared memory one block may use on the H100
+SMEM_STATIC = 1024   # the serial pass's static shared memory, rounded up
 
 
 def supported(W: int, R: int) -> bool:
@@ -78,6 +88,38 @@ def _check(img_bits: torch.Tensor, enb: torch.Tensor, W: int, R: int):
     if gh % W or gw % W or enb.shape != (W * W + 1,):
         raise ValueError("strict kernel takes a [ny*W, nx*W] tile grid and "
                          "an enb LUT of M+1 entries")
+
+
+def ring_rows(W: int) -> int:
+    """Words per ring column in the serial pass: the band's 2W rows and 9
+    of slack for grid 1's last run, odd against bank conflicts (Geo::RR)."""
+    return 2 * W + 9
+
+
+def _plan(W: int, R: int, gh: int, gw: int) -> dict:
+    """Launch geometry of csrc/strict_analyze.cu for a [gh, gw] tile grid.
+
+    Grid 2: a tile row's grid-2 window rows (at most min(R, gh-W) - W + 1)
+    are cut into ``slices`` blocks per tile of ``slice_rows`` rows each, a
+    multiple of RUN2, enough blocks per row to fill the card twice over.
+    Serial pass: the live band (rows [i0-W, i0+W)) as a ring of
+    ``ring_cols`` columns of ``ring_rows`` words beside the enb LUT, where
+    that fits in a block's shared memory (``ring``); else the band stays in
+    global memory."""
+    nx = gw // W
+    rows2 = max(0, min(R, gh - W) - W + 1)
+    nrun = -(-rows2 // RUN2)
+    slices = min(nrun, -(-G2_BLOCKS // nx))
+    rps = -(-nrun // slices) if slices else 0
+    slices = -(-nrun // rps) if rps else 0
+    cols = min(max(R, W) + 3 * W, gw)
+    ring_bytes = cols * ring_rows(W) * 4
+    enb_bytes = (W * W + 1) * 4
+    ring = enb_bytes + ring_bytes + SMEM_STATIC <= SMEM_MAX
+    return dict(slices=slices, slice_rows=rps * RUN2, ring=ring,
+                ring_cols=cols if ring else 0, ring_rows=ring_rows(W),
+                ring_bytes=ring_bytes if ring else 0,
+                smem=enb_bytes + (ring_bytes if ring else 0))
 
 
 def strict_analyze_plain(img_bits, enb, *, W: int, R: int, T_thresh: int,
@@ -196,8 +238,8 @@ def strict_analyze(img_bits, enb, *, W: int, R: int, T_thresh: int,
 
 
 def _launch(img_bits, enb, *, W, R, T_thresh, cols):
-    """Launch csrc/strict_analyze.cu: per tile row, a grid-2 pass (one
-    block per tile) and the serial pass (one block)."""
+    """Launch csrc/strict_analyze.cu: the field plane, then per tile row
+    the grid-2 pass (nx x slices blocks) and the serial pass (one block)."""
     _check(img_bits, enb, W, R)
     if enb.dtype != torch.int32 or not enb.is_contiguous() \
             or enb.device != img_bits.device:
@@ -205,19 +247,26 @@ def _launch(img_bits, enb, *, W, R, T_thresh, cols):
                          "device")
     lay = _layout(W, R)
     gh, gw = img_bits.shape
+    plan = _plan(W, R, gh, gw)
     dev = img_bits.device
     T = (gh // W) * (gw // W)
-    E = to_i32(_field_plane(img_bits[None], W, gh, gw)[0]).contiguous()
-    pr2 = torch.empty((gw // W,), dtype=torch.int64, device=dev)
-    gctx = torch.tensor([0, 0, 1, 0, 0, 1], dtype=torch.int32, device=dev)
+    img = img_bits.to(torch.uint8).contiguous()      # 0/1 bytes
+    E = torch.empty((gh, gw), dtype=torch.int32, device=dev)  # field plane
+    pr2 = torch.full((gw // W,), INF, dtype=torch.int64, device=dev)
+    # Golomb contexts (acc, n, k) x (match, nomatch), k from 1; filled on
+    # the device, so the call does not wait for the stream
+    gctx = torch.zeros(6, dtype=torch.int32, device=dev)
+    gctx[2::3] = 1
     out = torch.empty((T, 8), dtype=torch.int32, device=dev)
     resf = torch.empty((T, W), dtype=torch.int32, device=dev)
     lib = _cuda.get_lib()
     p = ctypes.c_void_p
     _cuda.check(lib.bic_strict_analyze(
-        p(E.data_ptr()), p(pr2.data_ptr()), p(enb.data_ptr()),
+        p(img.data_ptr()), p(E.data_ptr()), p(pr2.data_ptr()),
+        p(enb.data_ptr()),
         p(gctx.data_ptr()), p(out.data_ptr()), p(resf.data_ptr()), gh, gw,
         W, R, T_thresh, cols, lay["span"], lay["off1"], lay["kb"], lay["db"],
-        _cuda.stream(dev)), "bic_strict_analyze")
+        plan["ring_cols"], plan["ring_rows"], plan["slices"],
+        plan["slice_rows"], _cuda.stream(dev)), "bic_strict_analyze")
     _cuda.launches["strict_analyze"] += 1
     return out, resf

@@ -8,12 +8,16 @@ selection, K5 packed distances, K6 packed row weights) against its plain
 PyTorch version on the card, then drives the port's four paths, each with
 the launch counts reset just before it and read just after: the causal
 encode (one 512x512 page, then a 64-page corpus through the archive
-writer), strict mode (``encode_strict``), the banded fallback (``encode``
-at W = 64 and W = 40) and BSVD (codec 11 on one page, ``learn`` on both
-distance routes, the ``bsvd`` CLI at K = 512).  Every codec-8 stream is
-checked byte for byte against the native host encoder, the codec-11 stream
-against the same encode on the CPU, and each is round-tripped; stages and
-kernels are timed with CUDA events.  Imports no JAX.
+writer), strict mode (``encode_strict`` on a 512x512 and a 512x2048
+page), the banded fallback (``encode`` at W = 64 and W = 40) and BSVD
+(codec 11 on one page, ``learn`` on both distance routes, the ``bsvd`` CLI
+at K = 512).  Every codec-8 stream is checked byte for byte against the
+native host encoder, the codec-11 stream against the same encode on the
+CPU, and each is round-tripped; stages and kernels are timed with CUDA
+events (K3's kernels and K2's step also by torch.profiler's device times),
+and each kernel's time is printed beside its least time on the card
+(``utils/roofline``) and, for K5 and K6, the one PyTorch call that computes
+the same function.  Imports no JAX.
 
 Any failure raises and exits non-zero; without CUDA it exits 1 at once.  The
 last line of standard output is a JSON object:
@@ -171,11 +175,15 @@ def check_k3(st, compress, pnm, dev) -> int:
              ("residual feedback", feedback_image(), 8, 40),
              ("doc512", fx("doc512.pbm"), 16, 128),
              ("text256 W=24", fx("text256.pbm"), 24, 48),
-             ("text64 R<W", fx("text64.pbm"), 16, 9)]
+             ("text64 R<W", fx("text64.pbm"), 16, 9),
+             ("doc512 W=32", fx("doc512.pbm"), 32, 64),
+             ("doc512 2x2 W=32 R=1024", np.tile(fx("doc512.pbm"), (2, 2)),
+              32, 1024)]
     worst = 0
     for name, img, W, R in cases:
         rows, cols = img.shape
         g = grid_of(img[None], W, dev)[0]
+        plan = st._plan(W, R, *g.shape)
         enb = torch.from_numpy(compress.enb_lut(W * W)).to(dev)
         kw = dict(W=W, R=R, T_thresh=1, cols=cols)
         got = st._launch(g, enb, **kw)
@@ -184,8 +192,11 @@ def check_k3(st, compress, pnm, dev) -> int:
         err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
                   for a, b in zip(got, want))
         worst = max(worst, err)
-        log(f"K3 {name}: W={W} R={R} T={g.numel() // (W * W)} "
-            f"max_abs_err={err} matches={int((got[0][:, 0] < 2).sum())}")
+        band = (f"ring of {plan['ring_cols']} columns" if plan["ring"]
+                else "band in global memory")
+        log(f"K3 {name}: W={W} R={R} T={g.numel() // (W * W)} ({band}, "
+            f"{plan['slices']} grid-2 slices) max_abs_err={err} "
+            f"matches={int((got[0][:, 0] < 2).sum())}")
         if err != 0:
             raise AssertionError(f"K3 disagrees with its plain version on "
                                  f"{name}")
@@ -272,18 +283,25 @@ def host_stream(codec, native, img, p) -> bytes:
 
 
 def strict_path(compress, codec, native, pnm):
-    """The strict path as a user calls it: encode_strict on doc512."""
+    """The strict path as a user calls it: encode_strict on doc512, and on
+    doc512 tiled 1 x 4 (512 x 2048, wider than the serial pass's ring)."""
     doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
     p = codec.CodecParams(codec=8, W=16, R=128, strict=True)
-    t0 = time.perf_counter()
-    blob = compress.encode_strict(doc, p, device="cuda")
-    t = time.perf_counter() - t0
-    if blob != host_stream(codec, native, doc, p):
-        raise AssertionError("strict doc512 != native host strict stream")
-    if not np.array_equal(codec.decode(blob), doc):
-        raise AssertionError("strict doc512 does not round-trip")
-    log(f"strict: doc512 W=16 R=128 -> {len(blob)} B, == host strict "
-        f"encoder, round-trips ({t * 1e3:.1f} ms wall, first call)")
+    for name, img in (("doc512", doc), ("doc512 1x4", np.tile(doc, (1, 4)))):
+        t0 = time.perf_counter()
+        blob = compress.encode_strict(img, p, device="cuda")
+        t = time.perf_counter() - t0
+        if blob != host_stream(codec, native, img, p):
+            raise AssertionError(f"strict {name} != native host strict "
+                                 f"stream")
+        if not np.array_equal(codec.decode(blob), img):
+            raise AssertionError(f"strict {name} does not round-trip")
+        if name == "doc512" and len(blob) != 19192:
+            raise AssertionError(f"strict doc512 is {len(blob)} B, not "
+                                 f"19192")
+        log(f"strict: {name} {img.shape[0]}x{img.shape[1]} W=16 R=128 -> "
+            f"{len(blob)} B, == host strict encoder, round-trips "
+            f"({t * 1e3:.1f} ms wall, first call)")
 
 
 def banded_path(compress, codec, native, pnm):
@@ -437,9 +455,10 @@ class _Timed:
             setattr(self.mod, n, self.orig[n])
 
 
-def device_ms(fn, kernel: str, reps: int = 20):
-    """Mean device time of the CUDA kernel named `kernel` over reps calls of
-    fn(), from torch.profiler; None if the trace shows no device time."""
+def device_times(fn, kernels, reps: int = 20):
+    """Mean device time per call of fn() spent in the CUDA kernels whose
+    names contain each of `kernels`, over reps calls, from torch.profiler;
+    None where the trace shows no device time."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -448,9 +467,17 @@ def device_ms(fn, kernel: str, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages()
-             if kernel in e.key)
-    return us / 1e3 / reps if us else None
+    ev = prof.key_averages()
+    us = [sum(e.device_time_total for e in ev if k in e.key) for k in kernels]
+    return [u / 1e3 / reps if u else None for u in us]
+
+
+def device_ms(fn, kernel: str, reps: int = 20):
+    return device_times(fn, (kernel,), reps)[0]
+
+
+def nd(v) -> str:
+    return "not measured" if v is None else f"{v:.4f} ms"
 
 
 def bsvd_times(codec, bsvd, pd, pnm, dev, gpu):
@@ -474,15 +501,24 @@ def bsvd_times(codec, bsvd, pd, pnm, dev, gpu):
             f"packed route (pack + K5) {t['route']:.4f} ms [{gpu}]")
         dk = device_ms(lambda: pd._launch_dist(a, b), "packed_dist_kernel")
         log(f"  K5 device time alone (torch.profiler, mean of 20): "
-            f"{'not measured' if dk is None else f'{dk:.4f} ms'} [{gpu}]")
-    E, _ = dense_rows(1024, 256, 64, dev)
+            f"{nd(dk)} [{gpu}]")
+    # the library yardsticks at codec 11's shape, on the unpacked rows
+    E, D = dense_rows(1024, 256, 64, dev)
+    Ef, Df = E.float(), D.float()
+    if not torch.equal(torch.cdist(Ef, Df, p=0),
+                       pd._launch_dist(bsvd._pack(E), bsvd._pack(D)).float()):
+        raise AssertionError("torch.cdist(p=0) != K5 on codec 11's rows")
+    lib5 = cuda_ms(lambda: torch.cdist(Ef, Df, p=0), 20)
+    lib6 = cuda_ms(lambda: E.sum(dim=1), 20)
+    log(f"library calls at [1024, 256] x [64, 256] bits: torch.cdist(p=0) "
+        f"on float32 rows {lib5:.4f} ms (== K5), int8 rows.sum(1) "
+        f"{lib6:.4f} ms [{gpu}]")
     a = bsvd._pack(E)
     k6 = cuda_ms(lambda: pd._launch_weight(a), 20)
     k6p = cuda_ms(lambda: pd.packed_row_weight_plain(a), 5)
     dk = device_ms(lambda: pd._launch_weight(a), "packed_weight_kernel")
     log(f"K6 [1024, 8]: kernel {k6:.4f} ms, plain {k6p:.4f} ms; device "
-        f"time alone {'not measured' if dk is None else f'{dk:.4f} ms'} "
-        f"[{gpu}]")
+        f"time alone {nd(dk)} [{gpu}]")
 
     doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
     p = codec.CodecParams(codec=11, W=16, T=0, R=0)
@@ -517,7 +553,7 @@ def bsvd_times(codec, bsvd, pd, pnm, dev, gpu):
                 f"{atoms:.3f} ms ({100 * atoms / total:.1f} %), pursuit "
                 f"{pursuit:.3f} ms ({100 * pursuit / total:.1f} %) [{gpu}]")
     c11 = k5[(1024, 256, 64)]
-    return c11["k5"], c11["plain"], k6, k6p
+    return c11["k5"], c11["plain"], k6, k6p, lib5, lib6
 
 
 def drive(name, fn, _cuda, needs):
@@ -577,7 +613,7 @@ def stage_times(compress, fs, bitpack, codec, pnm, dev, gpu):
     return img, sel, out
 
 
-def kernel_times(compress, fs, dc, img, out, dev, gpu):
+def kernel_times(compress, fs, dc, roofline, img, out, dev, gpu):
     """K1 and K2 beside their plain versions at doc512's shapes."""
     W, R, T_thresh, rows, cols = 16, 128, 1, 512, 512
     ny = nx = 32
@@ -593,17 +629,46 @@ def kernel_times(compress, fs, dc, img, out, dev, gpu):
     k2p = cuda_ms(lambda: dc.decide_modes_plain(*a, codec_id=8), 2)
     log(f"K1 kernel {k1:.4f} ms vs plain {k1p:.3f} ms; K2 kernel {k2:.4f} ms "
         f"vs plain {k2p:.3f} ms (doc512 x{img.shape[0]}, W=16 R=128) [{gpu}]")
-    return k1, k1p, k2, k2p
+    T = ny * nx
+    # K2's chain: the device time of one page's launch at T and 4T tiles
+    # (random weights, M = 256) gives the time of one dependent step
+    rs = np.random.RandomState(5)
+    t2 = []
+    for n in (T, 4 * T):
+        b = [torch.from_numpy(x.astype(np.int32)).to(dev) for x in (
+            rs.randint(0, W * W + 1, (1, n, 4)), rs.rand(1, n) < 0.8,
+            rs.randint(1, 12, (1, n)))]
+        t2.append(device_ms(lambda: dc._launch(*b, a[3], codec_id=8),
+                            "decide_modes_kernel"))
+    if None not in t2:
+        step = (t2[1] - t2[0]) / (3 * T)
+        log(f"K2 chain (torch.profiler, mean of 20): one page {t2[0]:.4f} ms "
+            f"at T={T}, {t2[1]:.4f} ms at T={4 * T}: {step * 1e6:.2f} ns per "
+            f"step ({step * 1e-3 * roofline.H100_CLOCK_HZ:.0f} clocks at 1.98 "
+            f"GHz), so the chain is {step * T:.4f} ms of a page at T={T} "
+            f"[{gpu}]")
+    else:
+        log(f"K2 chain: device time not measured [{gpu}]")
+    k1_bound = roofline.bound_ms(
+        popcounts=roofline.search_popcounts(rows, cols, W, R),
+        nbytes=roofline.k1_bytes(*E.shape, T))
+    k2_bound = roofline.bound_ms(nbytes=roofline.k2_bytes(1, T, W * W))
+    return k1, k1p, k2, k2p, k1_bound, k2_bound
 
 
-def new_path_times(compress, codec, st, sw, search, pnm, dev, gpu):
-    """K3 and K4 beside their plain versions, and the strict and W = 64
-    encodes end to end, on doc512."""
+def new_path_times(compress, codec, st, sw, search, pnm, roofline, dev, gpu):
+    """K3 (whole, and the device time of each of its kernels) and K4 beside
+    their plain versions, and the strict and W = 64 encodes end to end, on
+    doc512."""
     doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
     g = grid_of(doc[None], 16, dev)[0]
     enb = torch.from_numpy(compress.enb_lut(256)).to(dev)
     kw = dict(W=16, R=128, T_thresh=1, cols=512)
     k3 = cuda_ms(lambda: st._launch(g, enb, **kw), 10)
+    dev_plane, dev_g2, dev_serial = device_times(
+        lambda: st._launch(g, enb, **kw),
+        ("strict_plane_kernel", "strict_grid2_kernel", "strict_serial_kernel"),
+        10)
     k3p = cuda_ms(lambda: st.strict_analyze_plain(g, enb, **kw), 2)
     t_maps = cuda_ms(lambda: banded_maps(search, pnm, 64, 128, dev), 3)
     d, oy, ox = banded_maps(search, pnm, 64, 128, dev)
@@ -615,13 +680,22 @@ def new_path_times(compress, codec, st, sw, search, pnm, dev, gpu):
                        5)
     p64 = codec.CodecParams(codec=8, W=64, R=128, strict=False)
     e64 = host_ms(lambda: compress.encode(doc, p64, device="cuda"), 5)
-    log(f"K3 (field plane + 2 x 32 launches) {k3:.4f} ms vs plain {k3p:.3f} "
-        f"ms (doc512, W=16 R=128) [{gpu}]")
+    b3 = roofline.bound_ms(
+        popcounts=roofline.search_popcounts(512, 512, 16, 128),
+        nbytes=roofline.k3_bytes(512, 512, 16))
+    floor = roofline.k3_chain_floor_ms(512, 512, 16, 128)
+    log(f"K3 (plane + 31 grid-2 + 32 serial launches) {k3:.4f} ms vs "
+        f"plain {k3p:.3f} ms (doc512, W=16 R=128) [{gpu}]")
+    log(f"  K3 device time by kernel (torch.profiler, mean of 10 calls): "
+        f"plane {nd(dev_plane)}, grid-2 pass {nd(dev_g2)}, serial pass "
+        f"{nd(dev_serial)}; bound {b3[0]:.4f} ms; chain floor (derived: grid "
+        f"1's popcounts on one SM) {floor:.4f} ms [{gpu}]")
     log(f"K4 kernel {k4:.4f} ms vs plain {k4p:.3f} ms; banded maps (PyTorch) "
         f"{t_maps:.3f} ms (doc512, W=64 R=128) [{gpu}]")
     log(f"end to end: encode_strict doc512 W=16 R=128 {e_strict:.3f} ms; "
         f"encode doc512 W=64 R=128 {e64:.3f} ms [{gpu}]")
-    return k3, k3p, k4, k4p
+    k4_bound = roofline.bound_ms(nbytes=roofline.k4_bytes(*d.shape))
+    return k3, k3p, b3, k4, k4p, k4_bound
 
 
 def main() -> int:
@@ -639,7 +713,7 @@ def main() -> int:
     from binary_image_compression_tpu_torch.ops import search
     from binary_image_compression_tpu_torch.ops import select_windows as sw
     from binary_image_compression_tpu_torch.ops import strict as st
-    from binary_image_compression_tpu_torch.utils import pnm
+    from binary_image_compression_tpu_torch.utils import pnm, roofline
 
     dev = torch.device("cuda", 0)
     gpu = card()
@@ -679,45 +753,38 @@ def main() -> int:
                    _cuda, ("packed_dist_matrix", "packed_row_weight"))
 
     img, _, out = stage_times(compress, fs, bitpack, codec, pnm, dev, gpu)
-    k1, k1p, k2, k2p = kernel_times(compress, fs, dc, img[:1],
-                                    {k: v[:1] for k, v in out.items()},
-                                    dev, gpu)
-    k3, k3p, k4, k4p = new_path_times(compress, codec, st, sw, search, pnm,
-                                      dev, gpu)
-    k5, k5p, k6, k6p = bsvd_times(codec, bsvd, pd, pnm, dev, gpu)
+    k1, k1p, k2, k2p, b1, b2 = kernel_times(
+        compress, fs, dc, roofline, img[:1],
+        {k: v[:1] for k, v in out.items()}, dev, gpu)
+    k3, k3p, b3, k4, k4p, b4 = new_path_times(
+        compress, codec, st, sw, search, pnm, roofline, dev, gpu)
+    k5, k5p, k6, k6p, lib5, lib6 = bsvd_times(codec, bsvd, pd, pnm, dev, gpu)
+    pops5, bytes5 = roofline.k5_work(1024, 64, 8)
+    pops6, bytes6 = roofline.k6_work(1024, 8)
+    b5 = roofline.bound_ms(popcounts=pops5, nbytes=bytes5)
+    b6 = roofline.bound_ms(popcounts=pops6, nbytes=bytes6)
     pkg = "binary_image_compression_tpu_torch/csrc/"
     jax_ops = "binary_image_compression_tpu/ops/"
+
+    def entry(name, src, replaces, launches, err, ms, plain, bound, lib):
+        return dict(name=name, route="cuda", source=pkg + src,
+                    replaces=jax_ops + replaces, launches=launches,
+                    max_abs_err=err, ms=ms, plain_ms=plain,
+                    bound_ms=bound[0], bound_by=bound[1], library_ms=lib)
     kernels = [
-        dict(name="fused_search_select", route="cuda",
-             source=pkg + "fused_search.cu",
-             replaces=jax_ops + "pallas_kernels.py:541",
-             launches=causal["fused_search_select"], max_abs_err=err1,
-             ms=k1, plain_ms=k1p),
-        dict(name="decide_modes", route="cuda",
-             source=pkg + "decide_modes.cu",
-             replaces=jax_ops + "pallas_decide.py:100",
-             launches=causal["decide_modes"], max_abs_err=err2,
-             ms=k2, plain_ms=k2p),
-        dict(name="strict_analyze", route="cuda",
-             source=pkg + "strict_analyze.cu",
-             replaces=jax_ops + "pallas_strict.py:61",
-             launches=strict_c["strict_analyze"], max_abs_err=err3,
-             ms=k3, plain_ms=k3p),
-        dict(name="select_windows", route="cuda",
-             source=pkg + "select_windows.cu",
-             replaces=jax_ops + "pallas_kernels.py:407",
-             launches=banded["select_windows"], max_abs_err=err4,
-             ms=k4, plain_ms=k4p),
-        dict(name="packed_dist_matrix", route="cuda",
-             source=pkg + "packed_dist.cu",
-             replaces=jax_ops + "pallas_kernels.py:45",
-             launches=bsvd_c["packed_dist_matrix"], max_abs_err=err5,
-             ms=k5, plain_ms=k5p),
-        dict(name="packed_row_weight", route="cuda",
-             source=pkg + "packed_dist.cu",
-             replaces=jax_ops + "pallas_kernels.py:728",
-             launches=bsvd_c["packed_row_weight"], max_abs_err=err6,
-             ms=k6, plain_ms=k6p),
+        entry("fused_search_select", "fused_search.cu",
+              "pallas_kernels.py:541", causal["fused_search_select"], err1,
+              k1, k1p, b1, None),
+        entry("decide_modes", "decide_modes.cu", "pallas_decide.py:100",
+              causal["decide_modes"], err2, k2, k2p, b2, None),
+        entry("strict_analyze", "strict_analyze.cu", "pallas_strict.py:61",
+              strict_c["strict_analyze"], err3, k3, k3p, b3, None),
+        entry("select_windows", "select_windows.cu", "pallas_kernels.py:407",
+              banded["select_windows"], err4, k4, k4p, b4, None),
+        entry("packed_dist_matrix", "packed_dist.cu", "pallas_kernels.py:45",
+              bsvd_c["packed_dist_matrix"], err5, k5, k5p, b5, lib5),
+        entry("packed_row_weight", "packed_dist.cu", "pallas_kernels.py:728",
+              bsvd_c["packed_row_weight"], err6, k6, k6p, b6, lib6),
     ]
     log(json.dumps({"kernels": kernels}))
     log(card())

@@ -101,10 +101,15 @@ def _feedback_image():
 @pytest.mark.parametrize("name,W,R", [
     ("text64.pbm", 8, 16), ("ragged75x101.pbm", 8, 24), ("feedback", 8, 40),
     ("text256.pbm", 16, 64), ("text256.pbm", 24, 32), ("text256.pbm", 32, 48),
-    ("text64.pbm", 16, 9)])
+    ("text64.pbm", 16, 9), ("doc512.pbm", 32, 64),
+    ("doc512 2x2", 32, 1024)])        # wider than the serial pass's ring
 def test_k3_kernel_matches_plain(dev, name, W, R):
-    img = (_feedback_image() if name == "feedback"
-           else pnm.read_pbm(os.path.join(FIX, name)))
+    if name == "feedback":
+        img = _feedback_image()
+    elif name == "doc512 2x2":
+        img = np.tile(pnm.read_pbm(os.path.join(FIX, "doc512.pbm")), (2, 2))
+    else:
+        img = pnm.read_pbm(os.path.join(FIX, name))
     rows, cols = img.shape
     grid = np.zeros((-(-rows // W) * W, -(-cols // W) * W), dtype=bool)
     grid[:rows, :cols] = img
@@ -166,8 +171,9 @@ def test_banded_encode_on_card_matches_host_encoder(dev, W, R):
     np.testing.assert_array_equal(codec.decode(blob), img)
 
 
-def test_strict_encode_on_card_matches_host_encoder(dev):
-    img = pnm.read_pbm(os.path.join(FIX, "doc512.pbm"))
+@pytest.mark.parametrize("tiles", [(1, 1), (1, 4)])
+def test_strict_encode_on_card_matches_host_encoder(dev, tiles):
+    img = np.tile(pnm.read_pbm(os.path.join(FIX, "doc512.pbm")), tiles)
     p = codec.CodecParams(codec=8, W=16, R=128, strict=True)
     blob = compress.encode_strict(img, p, device="cuda")
     assert blob == _host(img, p)
