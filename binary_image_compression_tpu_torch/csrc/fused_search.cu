@@ -1,8 +1,10 @@
-// Kernel K1: windowed Hamming search + serial-scan selection, one block per
-// (tile, page).
+// Kernel K1: the causal windowed Hamming search and serial-scan selection,
+// one block per (tile, page), and the W-bit row-field plane it searches,
+// built on the card.
 //
 // Replaces: binary_image_compression_tpu/ops/pallas_kernels.py
-//           ::fused_search_select (kernel body `kernel`), including the
+//           ::fused_search_select (kernel body `kernel`, and `_field_plane`,
+//           which it runs before its pallas_call), including the
 //           masked-grid `_selection_scalars` path it takes when the 32-bit
 //           packed priority does not fit.
 //
@@ -17,21 +19,44 @@
 // (bestd, dy, inv, found, rank, n_cands, has_cands, dx), with the
 // closed-form n_cands and rank of pallas_kernels.py::_packed_decode.
 //
-// What bounds it on the H100: load and popcount issue, not HBM.  At
-// 512x512, W=16, R=128 each tile scores up to 129 x 257 candidates with 16
-// row loads each (~0.5 M loads per tile, ~0.5 G per page), all from the
-// page's 1 MB plane, which stays resident in the 50 MB L2.  The TPU kernel's
-// VMEM band (136 x 512 x 4 B = 278 KB per tile row) does not fit the 227 KB a
-// block may use, so the plane is read through L1/L2 instead.
+// What bounds it on the H100: popcount and load issue, not HBM.  At doc512
+// (W=16, R=128) a page has 23.2 M windows of 8 popcounts each: 186 M
+// popcounts, 0.044 ms at 16 per clock per SM (utils/roofline).  The page's
+// plane is 1 MB (32 MB at batch 32) and stays resident in the 50 MB L2, so
+// every row load hits L1 or L2; what costs is the instructions issued per
+// window.
 //
-// What the design does about it: neighbouring threads take neighbouring
-// columns x of one candidate row, so each of the W row loads is one
-// coalesced 128-byte line per warp and rows are reused through L1 by the
-// candidate rows above and below; off-window candidates skip their loads;
-// the tile's own W fields sit in shared memory.  The block minimum is two
-// 32-bit __reduce_min_sync per warp (high word, then low word among the
-// lanes holding the high minimum) and a shared-memory pass over the warps
-// (packed_select.cuh, shared with K3 and K4).
+// What the design does about it (the window scoring of K3's grid-2 pass,
+// shared through packed_select.cuh):
+//  * An item is one candidate column x and a run of kRun = 12 consecutive
+//    window rows; neighbouring threads take neighbouring columns, so a row
+//    load is one coalesced line per warp.  Items advance without a
+//    division.
+//  * The tile's fields sit in registers, packed as the candidate words are,
+//    and a thread slides down its column: kRun windows cost kRun + W - 1
+//    loads, not kRun * W.  For W <= 16, K = 32 / W fields of consecutive
+//    rows share one 32-bit word: W / K popcounts per window (8 at W = 16).
+//  * Within a column the valid window rows form one interval (grid 2, then
+//    grid 1 from i0-W to i0 where x <= j0-W), and the scan key falls
+//    strictly as y grows: every grid-1 key is below off1 and every grid-2
+//    key at or above it.  So a run's winner is found by 32-bit compares
+//    (run_best) and only its 64-bit priority is formed.
+//  * Masks and keys use absolute rows (y_base, negative under tile
+//    sharding); loads use frame rows, clamped inside the plane.
+//  * The block minimum is block_min_u64; thread 0 decodes it.  There is no
+//    chain, so no atomics: at doc512 a page is 1,024 blocks of 256 threads
+//    (a batch of 32 is 32,768), taken bottom tile row first, since the
+//    tiles near the top have fewer window rows.  The run length, the block
+//    size and the order are those that scripts/k1_variants.py timed
+//    fastest for one page; they trade a few per cent at batch 32 against
+//    128 threads.
+//  * Instances for W = 8, 16 and 32; every other W <= 32 takes one instance
+//    with a run-time W, one field per word and the tile's fields read from
+//    shared memory.
+//  * The plane kernel builds E from the pages' 0/1 bytes, one thread per
+//    field and two warp ballots per 32 fields, with the zero rows below the
+//    grid that keep a bottom tile's band inside the plane
+//    (ops/fused_search.py::plane_height).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,17 +66,39 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kRun = 12;  // window rows per item
 
 struct Params {
   int He, We, nx, T, W, R, T_thresh, cols, invert, y_base;
   bic::Layout lay;
 };
 
+// window_dists for a run-time W: one field per word, the tile's fields tf
+// in shared memory.
+template <int L, class Ld>
+__device__ __forceinline__ void window_dists_any(Ld ld, const uint32_t* tf,
+                                                 int W, int (&d)[L]) {
+#pragma unroll
+  for (int l = 0; l < L; ++l) d[l] = 0;
+  for (int r = 0; r < L + W - 1; ++r) {
+    const uint32_t f = ld(r);
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const int a = r - l;
+      if (a >= 0 && a < W) d[l] += __popc(f ^ tf[a]);
+    }
+  }
+}
+
+// kW: the tile width, or 0 for the run-time-W instance.
+template <int kW>
 __global__ void __launch_bounds__(kThreads)
-fused_search_select_kernel(const uint32_t* __restrict__ E,
-                           int32_t* __restrict__ out, Params p) {
-  const int t = blockIdx.x, b = blockIdx.y;
-  const int W = p.W, R = p.R;
+fused_search_kernel(const uint32_t* __restrict__ E, int32_t* __restrict__ out,
+                    Params p) {
+  const int W = kW ? kW : p.W, R = p.R;
+  // bottom tile row first: the heaviest tiles start first and the light
+  // top rows (fewer window rows above them) fill the tail
+  const int t = p.T - 1 - blockIdx.x, b = blockIdx.y;
   const int i0 = (t / p.nx) * W, j0 = (t % p.nx) * W;
   const int oy = min(max(i0 - R, 0), max(p.He - W - R, 0));
   const uint32_t* Eb = E + (size_t)b * p.He * p.We;
@@ -61,37 +108,52 @@ fused_search_select_kernel(const uint32_t* __restrict__ E,
   if (threadIdx.x < W) tf[threadIdx.x] = Eb[(size_t)(i0 + threadIdx.x) * p.We + j0];
   __syncthreads();
 
-  // masks and scan keys use absolute rows (y_base), loads frame rows
-  const long long i0a = (long long)i0 + p.y_base;
-  const long long oya = (long long)oy + p.y_base;
-  const long long minj = max(j0 - R, 0), maxj2 = max(j0 - W, 0);
-  const long long maxj = min(j0 + R, p.cols - W);
-  const long long lo1 = i0a - W > 0 ? i0a - W : 0;
-  const long long lo2 = i0a - R > 0 ? i0a - R : 0;
-  const int M = W * W;
-  const int ncol = 2 * R + 1;
-  const int ncand = (R + 1) * ncol;
+  // absolute rows (frame row + y_base) for the masks and keys
+  const int i0a = i0 + p.y_base, oya = oy + p.y_base;
+  const int minj = max(j0 - R, 0), maxj = min(j0 + R, p.cols - W);
+  // every column's window rows start at ya; they end at i0a where the
+  // column is in grid 1 too, else at i0a - W, and within the band
+  const int ya = max(max(i0a - R, 0), oya);
+  const int yhi = min(i0a, oya + R);
+  const int ncol = maxj - minj + 1;
+  const int n = ncol > 0 && yhi >= ya ? (yhi - ya + kRun) / kRun * ncol : 0;
+
+  uint32_t tp[kW ? bic::Geo<kW ? kW : 1>::NP : 1];
+  if constexpr (kW > 0) bic::pack_tile<kW>([&](int a) { return tf[a]; }, tp);
 
   unsigned long long best = bic::kInf;
-  for (int idx = threadIdx.x; idx < ncand; idx += kThreads) {
-    const int r = idx / ncol;
-    const long long x = (long long)j0 - R + (idx - r * ncol);
-    const long long y = oya + r;
-    const bool in1 = j0 >= W && y >= lo1 && y <= i0a && x >= minj && x <= maxj2;
-    const bool in2 = y >= lo2 && y <= i0a - W && x >= minj && x <= maxj;
-    if (!(in1 || in2)) continue;
-    long long key = (long long)bic::kInf;
-    if (in1) key = (i0a - y) * p.lay.span + (maxj2 - x);
-    if (in2) {
-      const long long k2 = p.lay.off1 + (i0a - W - y) * p.lay.span + (maxj - x);
-      key = k2 < key ? k2 : key;
+  if (n > 0) {
+    // item idx = q * ncol + c (run q, column c), stepped by kThreads
+    const int dq = kThreads / ncol, dc = kThreads - dq * ncol;
+    int q = threadIdx.x / ncol, c = threadIdx.x - q * ncol;
+    for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+      const int x = minj + c, y0 = ya + q * kRun;
+      const bool g1 = j0 >= W && x <= j0 - W;
+      const int ylast = min(g1 ? i0a : i0a - W, oya + R);
+      if (y0 <= ylast) {
+        const uint32_t* col = Eb + x;
+        const int f0 = y0 - p.y_base, fmax = p.He - 1;  // frame rows
+        auto ld = [&](int r) {
+          return __ldg(col + (size_t)min(f0 + r, fmax) * p.We);
+        };
+        int d[kRun];
+        if constexpr (kW > 0) bic::window_dists<kW, kRun>(ld, tp, d);
+        else window_dists_any<kRun>(ld, tf, W, d);
+        const unsigned long long pr = bic::run_best<kRun>(
+            d, y0, ylast, W * W, p.T_thresh, p.invert,
+            [&](int y) -> long long {
+              return g1 && y >= i0a - W
+                         ? (long long)(i0a - y) * p.lay.span + (j0 - W - x)
+                         : p.lay.off1 + (long long)(i0a - W - y) * p.lay.span +
+                               (maxj - x);
+            },
+            p.lay);
+        best = pr < best ? pr : best;
+      }
+      q += dq;
+      c += dc;
+      if (c >= ncol) { c -= ncol; ++q; }
     }
-    const uint32_t* col = Eb + (size_t)(oy + r) * p.We + x;
-    int d = 0;
-    for (int a = 0; a < W; ++a) d += __popc(__ldg(col + (size_t)a * p.We) ^ tf[a]);
-    const unsigned long long pr =
-        bic::packed_priority(d, key, M, p.T_thresh, p.invert, p.lay);
-    best = pr < best ? pr : best;
   }
 
   best = bic::block_min_u64<kThreads>(best, wmin);
@@ -108,7 +170,46 @@ fused_search_select_kernel(const uint32_t* __restrict__ E,
   o[7] = (int32_t)s.x;
 }
 
+// E[b][y][x] = img[b][y][x .. x+W) as bits W-1 .. 0, for y < He and x < gw;
+// rows past gh and pixels past the right edge read 0.  A warp takes 32
+// neighbouring fields of one row: two ballots give pixels x0 .. x0+63 as
+// the bits of one word, and each lane cuts its W bits out of it, so a field
+// costs two byte loads.  Rows `rows` = B * He, strided over gridDim.y.
+__global__ void field_plane_kernel(const uint8_t* __restrict__ img,
+                                   uint32_t* __restrict__ E, int gh, int gw,
+                                   int He, int W, int rows) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  for (int row = blockIdx.y; row < rows; row += gridDim.y) {
+    const int y = row % He;
+    const uint8_t* r = img + ((size_t)(row / He) * gh + y) * gw;
+    const bool in = y < gh;
+    const unsigned long long bits =
+        __ballot_sync(bic::kFull, in && x < gw && r[x]) |
+        (unsigned long long)__ballot_sync(bic::kFull,
+                                          in && x + 32 < gw && r[x + 32])
+            << 32;
+    // pixel x + a at bit a, then at bit W-1-a
+    const uint32_t v = __brev((uint32_t)(bits >> lane)) >> (32 - W);
+    if (x < gw) E[(size_t)row * gw + x] = v;
+  }
+}
+
 }  // namespace
+
+// img: 0/1 bytes [B, gh, gw]; E: uint32 [B, He, gw], He >= gh.  Launches on
+// `stream` and returns cudaGetLastError().
+extern "C" int bic_field_plane(const void* img, void* E, int B, int gh,
+                               int gw, int He, int W, void* stream) {
+  if (B <= 0 || gh <= 0 || gw <= 0) return (int)cudaSuccess;
+  if (W < 1 || W > 32 || He < gh || (long long)B * He > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const int rows = B * He;
+  const dim3 grid((unsigned)((gw + 255) / 256), (unsigned)(rows < 65535 ? rows : 65535));
+  field_plane_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)img, (uint32_t*)E, gh, gw, He, W, rows);
+  return (int)cudaGetLastError();
+}
 
 // E: uint32 [B, He, We] field planes; out: int32 [B, T, 8].  Launches on
 // `stream` and returns cudaGetLastError().
@@ -119,11 +220,18 @@ extern "C" int bic_fused_search_select(const void* E, void* out, int B,
                                        int off1, int kb, int db,
                                        void* stream) {
   if (B <= 0 || T <= 0) return (int)cudaSuccess;
-  if (W < 1 || W > 32 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (W < 1 || W > 32 || R < W || B > 65535) return (int)cudaErrorInvalidValue;
   Params p{He, We, nx, T, W, R, T_thresh, cols, invert, y_base,
            bic::Layout{span, off1, kb, db}};
   dim3 grid((unsigned)T, (unsigned)B);
-  fused_search_select_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)E, (int32_t*)out, p);
+  cudaStream_t s = (cudaStream_t)stream;
+  const uint32_t* e = (const uint32_t*)E;
+  int32_t* o = (int32_t*)out;
+  switch (W) {
+    case 8: fused_search_kernel<8><<<grid, kThreads, 0, s>>>(e, o, p); break;
+    case 16: fused_search_kernel<16><<<grid, kThreads, 0, s>>>(e, o, p); break;
+    case 32: fused_search_kernel<32><<<grid, kThreads, 0, s>>>(e, o, p); break;
+    default: fused_search_kernel<0><<<grid, kThreads, 0, s>>>(e, o, p);
+  }
   return (int)cudaGetLastError();
 }

@@ -7,6 +7,13 @@
 // (ops/fused_search.py::packed_sel_layout); the winner decodes from its
 // scan key with the closed-form rectangle counts of
 // binary_image_compression_tpu/ops/pallas_kernels.py::_packed_decode.
+//
+// The window scoring K1 and K3 share: a thread takes one candidate column
+// and a run of L consecutive window rows, holds the tile's fields in
+// registers packed as the candidate words are (pack_tile), slides down the
+// column (window_dists: L + W - 1 loads for L windows, two 16-bit or four
+// 8-bit fields per popcount) and forms one 64-bit priority for the run's
+// winner (run_best).
 
 #pragma once
 
@@ -20,6 +27,15 @@ constexpr unsigned kFull = 0xffffffffu;
 
 struct Layout {
   int span, off1, kb, db;
+};
+
+template <int W>
+struct Geo {
+  static constexpr int K = W == 8 ? 4 : W == 16 ? 2 : 1;  // fields per word
+  static constexpr int NP = W / K;                         // popcounts/window
+  // K3's grid-1 window rows per thread item: W+1 rows in 3, 3, 5 and 5 runs
+  static constexpr int L1 = W == 8 ? 3 : W == 16 ? 6 : W == 24 ? 5 : 7;
+  static constexpr uint32_t mask = (uint32_t)((1ull << W) - 1ull);
 };
 
 // The packed priority of a candidate at distance d with scan key `key`.
@@ -62,6 +78,75 @@ __device__ __forceinline__ unsigned long long block_min_u64(
   for (int w = 1; w < kThreads / 32; ++w) m = scratch[w] < m ? scratch[w] : m;
   __syncthreads();
   return m;
+}
+
+// tp[m]: the tile's fields m*K .. m*K+K-1 packed as a candidate word is,
+// field a at bits W * (a - m*K).  ld(a) returns the tile's field of row a.
+template <int W, class Ld>
+__device__ __forceinline__ void pack_tile(Ld ld, uint32_t (&tp)[Geo<W>::NP]) {
+  constexpr int K = Geo<W>::K;
+#pragma unroll
+  for (int m = 0; m < Geo<W>::NP; ++m) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int j = 0; j < K; ++j) v |= ld(m * K + j) << (W * j);
+    tp[m] = v;
+  }
+}
+
+// d[l] = Hamming distance between the tile and the window whose top row is
+// y0 + l, for l < L, on one column; ld(r) returns the field of row y0 + r.
+// Loads L + W - 1 fields and takes L * W / K popcounts.
+template <int W, int L, class Ld>
+__device__ __forceinline__ void window_dists(Ld ld,
+                                             const uint32_t (&tp)[Geo<W>::NP],
+                                             int (&d)[L]) {
+  constexpr int K = Geo<W>::K;
+  uint32_t hist[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) hist[j] = 0;
+#pragma unroll
+  for (int l = 0; l < L; ++l) d[l] = 0;
+#pragma unroll
+  for (int r = 0; r < L + W - 1; ++r) {
+#pragma unroll
+    for (int j = 0; j + 1 < K; ++j) hist[j] = hist[j + 1];
+    hist[K - 1] = ld(r);
+    if (r >= K - 1) {
+      // rows s .. s+K-1 in one word; window l uses it as its word m
+      const int s = r - (K - 1);
+      uint32_t pw = 0;
+#pragma unroll
+      for (int j = 0; j < K; ++j) pw |= hist[j] << (W * j);
+#pragma unroll
+      for (int m = 0; m < Geo<W>::NP; ++m) {
+        const int l = s - m * K;
+        if (l >= 0 && l < L) d[l] += __popc(pw ^ tp[m]);
+      }
+    }
+  }
+}
+
+// The least packed priority among one column's windows with top rows
+// y0..y0+L-1, those with y <= ylast, where key(y) falls as y grows: a stop
+// window (d' <= T) beats every other and the one with the largest y wins;
+// else the least d', ties to the largest y.  d' = min(d, M-d) under
+// inversion, else d.  Only the winner's 64-bit priority is formed.
+template <int L, class Key>
+__device__ __forceinline__ unsigned long long run_best(const int (&d)[L],
+                                                       int y0, int ylast,
+                                                       int M, int T,
+                                                       int invert, Key key,
+                                                       Layout lay) {
+  int vbest = 0x7fffffff, dbest = 0, lbest = -1;
+#pragma unroll
+  for (int l = L - 1; l >= 0; --l) {
+    const int dp = invert ? min(d[l], M - d[l]) : d[l];
+    const int v = dp <= T ? -1 : dp;
+    if (y0 + l <= ylast && v < vbest) { vbest = v; dbest = d[l]; lbest = l; }
+  }
+  return lbest < 0 ? kInf
+                   : packed_priority(dbest, key(y0 + lbest), M, T, invert, lay);
 }
 
 __device__ __forceinline__ long long count_lt(long long ks, long long c,

@@ -89,14 +89,10 @@ constexpr int kBig = 1 << 28;
 constexpr int kMcost = 3;  // codec 8: match + pred + inv bits
 constexpr int kNcost = 2;  // codec 8: match + pred bits
 
-template <int W>
-struct Geo {
-  static constexpr int K = W == 8 ? 4 : W == 16 ? 2 : 1;  // fields per word
-  static constexpr int NP = W / K;                         // popcounts/window
-  // grid-1 window rows per thread item: W+1 rows in 3, 3, 5 and 5 runs
-  static constexpr int L1 = W == 8 ? 3 : W == 16 ? 6 : W == 24 ? 5 : 7;
-  static constexpr uint32_t mask = (uint32_t)((1ull << W) - 1ull);
-};
+using bic::Geo;
+using bic::pack_tile;
+using bic::run_best;
+using bic::window_dists;
 
 struct Params {
   int gh, gw, nx, W, R, T_thresh, cols;
@@ -105,74 +101,6 @@ struct Params {
   int slice_rows;  // grid-2 window rows per slice
   bic::Layout lay;
 };
-
-// tp[m]: the tile's fields m*K .. m*K+K-1 packed as a candidate word is,
-// field a at bits W * (a - m*K).  ld(a) returns the tile's field of row a.
-template <int W, class Ld>
-__device__ __forceinline__ void pack_tile(Ld ld, uint32_t (&tp)[Geo<W>::NP]) {
-  constexpr int K = Geo<W>::K;
-#pragma unroll
-  for (int m = 0; m < Geo<W>::NP; ++m) {
-    uint32_t v = 0;
-#pragma unroll
-    for (int j = 0; j < K; ++j) v |= ld(m * K + j) << (W * j);
-    tp[m] = v;
-  }
-}
-
-// d[l] = Hamming distance between the tile and the window whose top row is
-// y0 + l, for l < L, on one column; ld(r) returns the field of row y0 + r.
-// Loads L + W - 1 fields and takes L * W / K popcounts.
-template <int W, int L, class Ld>
-__device__ __forceinline__ void window_dists(Ld ld,
-                                             const uint32_t (&tp)[Geo<W>::NP],
-                                             int (&d)[L]) {
-  constexpr int K = Geo<W>::K;
-  uint32_t hist[K];
-#pragma unroll
-  for (int j = 0; j < K; ++j) hist[j] = 0;
-#pragma unroll
-  for (int l = 0; l < L; ++l) d[l] = 0;
-#pragma unroll
-  for (int r = 0; r < L + W - 1; ++r) {
-#pragma unroll
-    for (int j = 0; j + 1 < K; ++j) hist[j] = hist[j + 1];
-    hist[K - 1] = ld(r);
-    if (r >= K - 1) {
-      // rows s .. s+K-1 in one word; window l uses it as its word m
-      const int s = r - (K - 1);
-      uint32_t pw = 0;
-#pragma unroll
-      for (int j = 0; j < K; ++j) pw |= hist[j] << (W * j);
-#pragma unroll
-      for (int m = 0; m < Geo<W>::NP; ++m) {
-        const int l = s - m * K;
-        if (l >= 0 && l < L) d[l] += __popc(pw ^ tp[m]);
-      }
-    }
-  }
-}
-
-// The least packed priority among one column's windows with top rows
-// y0..y0+L-1, those with y <= ylast, where key(y) falls as y grows: a stop
-// window (d' <= T) beats every other and the one with the largest y wins;
-// else the least d', ties to the largest y.  Only the winner's 64-bit
-// priority is formed.
-template <int M, int L, class Key>
-__device__ __forceinline__ unsigned long long run_best(const int (&d)[L],
-                                                       int y0, int ylast,
-                                                       int T, Key key,
-                                                       bic::Layout lay) {
-  int vbest = 0x7fffffff, dbest = 0, lbest = -1;
-#pragma unroll
-  for (int l = L - 1; l >= 0; --l) {
-    const int dp = min(d[l], M - d[l]);
-    const int v = dp <= T ? -1 : dp;
-    if (y0 + l <= ylast && v < vbest) { vbest = v; dbest = d[l]; lbest = l; }
-  }
-  return lbest < 0 ? bic::kInf
-                   : bic::packed_priority(dbest, key(y0 + lbest), M, T, 1, lay);
-}
 
 // Grid 2 of tile row `i0`: block (tj, s) scores the runs of slice s of
 // tile tj and merges its minimum into pr2[tj].
@@ -207,8 +135,8 @@ strict_grid2_kernel(const uint32_t* __restrict__ E,
     window_dists<W, kRun2>(
         [&](int r) { return __ldg(col + (size_t)min(y0 + r, i0 - 1) * gw); },
         tp, d);
-    const unsigned long long pr = run_best<W * W, kRun2>(
-        d, y0, yb, p.T_thresh,
+    const unsigned long long pr = run_best<kRun2>(
+        d, y0, yb, W * W, p.T_thresh, 1,
         [&](int y) {
           return p.lay.off1 + (long long)(hi2 - y) * p.lay.span + (maxj - x);
         },
@@ -396,8 +324,8 @@ strict_serial_kernel(uint32_t* E, unsigned long long* pr2,
               [&](int r) { return col[(size_t)min(y0 + r, i0 + W - 1) * gw]; },
               tp, d);
         }
-        const unsigned long long pr = run_best<M, L>(
-            d, y0, i0, p.T_thresh,
+        const unsigned long long pr = run_best<L>(
+            d, y0, i0, M, p.T_thresh, 1,
             [&](int y) { return (long long)(i0 - y) * p.lay.span + (j0 - W - x); },
             p.lay);
         best = pr < best ? pr : best;

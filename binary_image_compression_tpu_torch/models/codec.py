@@ -6,8 +6,10 @@ codecs the port covers: ``CodecParams`` with ``resolved_T``, ``MAGIC``,
 learned-dictionary (BSVD) patch codec (``_encode_bsvd`` :847, split here
 into the learning step and ``_write_bsvd``); and ``decode`` for the
 windowed codecs 4/6/7/8, through the shared native decoder
-``bic_decode_windowed``, and for codec 11 (``_decode_bsvd`` :908, numpy on
-the host).  Codec 8 is encoded by ``models/compress``.
+``bic_decode_windowed`` or, for pages past its bound, the numpy
+``_decode_windowed`` (:459, with ``window_candidates`` :65 and ``_unmed``
+:188), and for codec 11 (``_decode_bsvd`` :908, numpy on the host).  Codec 8
+is encoded by ``models/compress``.
 
 Container: magic "BIC1" | u32 crc32 of the packed image | u8 codec | u8
 flags (bit0 strict) | u16 W | u32 rows | u32 cols | u32 T | u32 R | payload.
@@ -34,6 +36,9 @@ WINDOWED_CODECS = (4, 6, 7, 8)
 BSVD_CODEC = 11
 # the largest page a header may declare (JAX codec.py:425)
 MAX_PIXELS = 2 ** 31
+# the largest page bic_decode_windowed takes (native/bic_native.cpp:593);
+# larger windowed pages decode through the numpy _decode_windowed
+NATIVE_MAX_PIXELS = 2 ** 30
 
 
 @dataclass
@@ -174,6 +179,77 @@ def _decode_bsvd(r: BitReader, W, rows, cols) -> np.ndarray:
     return out[:rows, :cols]
 
 
+def window_candidates(i0: int, j0: int, W: int, R: int,
+                      cols: int) -> list[tuple[int, int]]:
+    """Scan-ordered causal candidates (y, x) of tile (i0, j0): grid 1 (rows
+    i0..max(i0-W, 0), for j0 >= W) then grid 2 (rows i0-W..max(i0-R, 0)),
+    each row from its right end (compress8_test.cpp:137-143)."""
+    out = []
+    mini, minj = max(i0 - R, 0), max(j0 - R, 0)
+    maxj = min(j0 + R, cols - W)
+    if j0 >= W:
+        for y in range(i0, max(i0 - W, 0) - 1, -1):
+            for x in range(j0 - W, minj - 1, -1):
+                out.append((y, x))
+    for y in range(i0 - W, mini - 1, -1):
+        for x in range(maxj, minj - 1, -1):
+            out.append((y, x))
+    return out
+
+
+def _unmed(r: np.ndarray) -> np.ndarray:
+    """Inverse of the MED residual: XOR prefix along rows, then columns."""
+    x = np.bitwise_xor.accumulate(r, axis=1)
+    return np.bitwise_xor.accumulate(x, axis=0)
+
+
+def _decode_windowed(r: BitReader, codec, W, rows, cols, R,
+                     strict) -> np.ndarray:
+    """numpy decoder of a codec 4/6/7/8 payload, tile by tile in raster
+    order (JAX codec.py:459-508 without codec 1)."""
+    invert = codec == 8
+    use_pred = codec in (7, 8)
+    ny, nx = -(-rows // W), -(-cols // W)
+    M = W * W
+    work = np.zeros((ny * W, nx * W), dtype=np.uint8)   # encoder's state
+    out = np.zeros((ny * W, nx * W), dtype=np.uint8)    # original pixels
+    ref_img = work if strict else out
+    gm, gn = GolombCoder(), GolombCoder()
+    for ti in range(ny):
+        for tj in range(nx):
+            i0, j0 = ti * W, tj * W
+            match = r.read_bits(1)
+            pred = r.read_bits(1) if use_pred else 0
+            if match:
+                inv = r.read_bits(1) if invert else 0
+                cands = window_candidates(i0, j0, W, R, cols)
+                n_cands = len(cands)
+                idx_len = max(1, (n_cands - 1).bit_length()) if n_cands else 0
+                rank = r.read_bits(idx_len)
+                if rank >= n_cands:
+                    raise ValueError("corrupt stream: candidate rank "
+                                     f"{rank} >= {n_cands}")
+                wt = golomb_decode(r, gm.k)
+                gm.code_sample(wt)
+            else:
+                inv = 0
+                wt = golomb_decode(r, gn.k)
+                gn.code_sample(wt)
+            res = enum_decode(r, M, wt).reshape(W, W).astype(np.uint8)
+            if match:
+                y, x = cands[rank]
+                P2 = ref_img[y:y + W, x:x + W]
+                P3 = _unmed(res) if pred else res
+                Pm = P3 ^ P2
+                P = (1 - Pm) if inv else Pm
+            else:
+                P = _unmed(res) if pred else res
+            out[i0:i0 + W, j0:j0 + W] = P
+            if strict:
+                work[i0:i0 + W, j0:j0 + W] = res
+    return out[:rows, :cols].astype(bool)
+
+
 def _check_header(codec: int, W: int, rows: int, cols: int) -> None:
     """Validate header fields, which come from an untrusted stream, before
     any decoder sizes a buffer from them or divides by W (the bounds of
@@ -193,12 +269,15 @@ def decode(blob: bytes, *, verify_crc: bool = True) -> np.ndarray:
     """Decode a BIC1 stream of codec 4/6/7/8 or 11 to bool [rows, cols]."""
     if blob[:4] != MAGIC or len(blob) < HEADER_LEN:
         raise ValueError("not a BIC1 stream")
-    crc, codec, _flags, W, rows, cols, _T, _R = struct.unpack(
+    crc, codec, flags, W, rows, cols, _T, R = struct.unpack(
         "<IBBHIIII", blob[4:HEADER_LEN])
     _check_header(codec, W, rows, cols)
+    r = BitReader(blob, bit_offset=HEADER_LEN * 8)
     if codec == BSVD_CODEC:
-        out = _decode_bsvd(BitReader(blob, bit_offset=HEADER_LEN * 8), W,
-                           rows, cols)
+        out = _decode_bsvd(r, W, rows, cols)
+    elif rows * cols > NATIVE_MAX_PIXELS:
+        out = _decode_windowed(r, codec, W, rows, cols, R,
+                               strict=bool(flags & 1))
     else:
         out = native.decode_windowed(blob, rows, cols)
     if verify_crc and image_crc(out) != crc:

@@ -111,6 +111,8 @@ def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bic_fused_search_select.restype = i
     lib.bic_fused_search_select.argtypes = [p, p] + [i] * 15 + [p]
+    lib.bic_field_plane.restype = i
+    lib.bic_field_plane.argtypes = [p, p] + [i] * 5 + [p]
     lib.bic_decide_modes.restype = i
     lib.bic_decide_modes.argtypes = [p] * 5 + [i] * 6 + [p]
     lib.bic_select_windows.restype = i

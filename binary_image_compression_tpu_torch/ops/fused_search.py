@@ -16,8 +16,10 @@ covers every shape, including those where the JAX package's 32-bit layout
 does not fit and it takes the masked-grid selection instead (W=32 with
 R >= 172, for example); both JAX paths give the same 8 outputs.
 
-``fused_search_select`` launches the CUDA kernel (``csrc/fused_search.cu``)
-for CUDA tensors and runs ``fused_search_select_plain`` for CPU tensors.
+``fused_search_select`` launches two CUDA kernels (``csrc/fused_search.cu``)
+for CUDA tensors, the field plane (counted as ``field_plane``) and the
+search (``fused_search_select``), and runs their plain versions,
+``_field_plane`` and ``fused_search_select_plain``, for CPU tensors.
 """
 
 from __future__ import annotations
@@ -92,7 +94,8 @@ def band_origins(ny: int, W: int, R: int, He: int, device=None):
 
 def _field_plane(img: torch.Tensor, W: int, He: int, We: int) -> torch.Tensor:
     """E[b, y, x] = the W-bit row field img[b, y, x:x+W] (bits W-1..0) as
-    int64; rows past the image and columns past its right edge read 0."""
+    int64; rows past the image and columns past its right edge read 0.
+    The plain version of the plane kernel (``_launch_plane``)."""
     B, gh, gw = img.shape
     imgp = torch.zeros((B, He, We + W), dtype=torch.int64, device=img.device)
     imgp[:, :gh, :gw] = img.to(torch.int64)
@@ -252,21 +255,41 @@ def fused_search_select(img_bits, ny: int, nx: int, *, W: int, R: int,
             "compress.encode_analyze takes the banded route (search."
             "window_distance_maps_banded + select_windows) for this shape")
     He = plane_height(gh, W, R)
-    E = to_i32(_field_plane(img_bits, W, He, gw))
-    oy = band_origins(ny, W, R, He, device=E.device).repeat_interleave(nx)
     kw = dict(W=W, R=R, T_thresh=T_thresh, cols=cols, invert=invert,
               y_base=y_base)
-    if E.is_cuda:
+    if img_bits.is_cuda:
+        E = _launch_plane(img_bits, W, He)
         sel = _launch(E, ny, nx, **kw)
-    elif E.device.type == "cpu":
+    elif img_bits.device.type == "cpu":
+        E = to_i32(_field_plane(img_bits, W, He, gw))
         sel = fused_search_select_plain(E, ny, nx, **kw)
     else:
-        raise RuntimeError(f"K1 has no kernel for device {E.device}")
+        raise RuntimeError(f"K1 has no kernel for device {img_bits.device}")
+    oy = band_origins(ny, W, R, He, device=E.device).repeat_interleave(nx)
     return sel, oy, E
 
 
+def _launch_plane(img_bits, W: int, He: int):
+    """Launch the plane kernel of csrc/fused_search.cu: 0/1 [B, gh, gw] ->
+    int32 [B, He, gw], one thread per field."""
+    if img_bits.dim() != 3 or not 1 <= W <= 32 or He < img_bits.shape[1]:
+        raise ValueError("the plane kernel takes 0/1 [B, gh, gw] pages, "
+                         "W <= 32 and He >= gh")
+    img = img_bits.contiguous()
+    img = img.view(torch.uint8) if img.dtype == torch.bool \
+        else img.to(torch.uint8)
+    B, gh, gw = img.shape
+    E = torch.empty((B, He, gw), dtype=torch.int32, device=img.device)
+    _cuda.check(_cuda.get_lib().bic_field_plane(
+        ctypes.c_void_p(img.data_ptr()), ctypes.c_void_p(E.data_ptr()),
+        B, gh, gw, He, W, _cuda.stream(img.device)), "bic_field_plane")
+    _cuda.launches["field_plane"] += 1
+    return E
+
+
 def _launch(E, ny, nx, *, W, R, T_thresh, cols, invert, y_base):
-    """Launch csrc/fused_search.cu: one block per (tile, page)."""
+    """Launch the search kernel of csrc/fused_search.cu: one block per
+    (tile, page)."""
     if E.dtype != torch.int32 or E.dim() != 3 or not E.is_contiguous():
         raise ValueError("K1 takes a contiguous int32 [B, He, We] plane")
     lay = packed_sel_layout(W, R)

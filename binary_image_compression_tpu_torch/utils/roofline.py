@@ -77,6 +77,12 @@ def k1_bytes(B: int, He: int, We: int, T: int) -> int:
     return 4 * B * He * We + 4 * B * T * 8
 
 
+def plane_bytes(B: int, gh: int, gw: int, He: int) -> int:
+    """K1's plane kernel: 0/1 bytes [B, gh, gw] in, the int32 field plane
+    [B, He, gw] out."""
+    return B * gh * gw + 4 * B * He * gw
+
+
 def k2_bytes(B: int, T: int, M: int) -> int:
     """K2: weights [B, T, 4], has_cands and idx_len [B, T] and enb [M + 1]
     in, int32 [B, T, 3] out."""

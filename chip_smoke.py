@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 Builds the native host library and the CUDA kernels from this checkout,
-holds each kernel (K1 search, K2 decision, K3 strict analysis, K4 banded
-selection, K5 packed distances, K6 packed row weights) against its plain
-PyTorch version on the card, then drives the port's four paths, each with
+holds each kernel (K1's field plane and search, K2 decision, K3 strict
+analysis, K4 banded selection, K5 packed distances, K6 packed row weights)
+against its plain PyTorch version on the card, then drives the port's four paths, each with
 the launch counts reset just before it and read just after: the causal
 encode (one 512x512 page, then a 64-page corpus through the archive
 writer), strict mode (``encode_strict`` on a 512x512 and a 512x2048
@@ -14,10 +14,10 @@ page), the banded fallback (``encode`` at W = 64 and W = 40) and BSVD
 at K = 512).  Every codec-8 stream is checked byte for byte against the
 native host encoder, the codec-11 stream against the same encode on the
 CPU, and each is round-tripped; stages and kernels are timed with CUDA
-events (K3's kernels and K2's step also by torch.profiler's device times),
-and each kernel's time is printed beside its least time on the card
-(``utils/roofline``) and, for K5 and K6, the one PyTorch call that computes
-the same function.  Imports no JAX.
+events (K1's and K3's kernels and K2's step also by torch.profiler's device
+times), and each kernel's time is printed beside its least time on the card
+(``utils/roofline``) and, for K1's plane, K5 and K6, the one PyTorch call
+that computes the same function.  Imports no JAX.
 
 Any failure raises and exits non-zero; without CUDA it exits 1 at once.  The
 last line of standard output is a JSON object:
@@ -86,40 +86,53 @@ def grid_of(pages: np.ndarray, W: int, dev) -> torch.Tensor:
     return torch.from_numpy(g).to(dev)
 
 
-def check_k1(fs, pnm, dev) -> int:
-    """K1 == its plain version on the same CUDA tensors."""
+def check_k1(fs, pnm, dev) -> tuple[int, int]:
+    """K1's two kernels == their plain versions on the same CUDA tensors:
+    the plane kernel == ``_field_plane``, the search == its plain version
+    (W = 5 and 12 take the run-time-W instance; y_base != 0 moves masks and
+    keys to absolute rows).  Returns the worst error of each."""
     doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
     rag = pnm.read_pbm(os.path.join(FIXTURES, "ragged75x101.pbm"))
     rnd = np.random.RandomState(7).rand(256, 320) < 0.3
     rs = np.random.RandomState(1)
-    batch = np.stack([np.roll(doc, (rs.randint(512), rs.randint(512)),
-                              axis=(0, 1)) for _ in range(4)])
-    cases = [("doc512", doc[None], 16, 128, True),
-             ("ragged75x101", rag[None], 8, 16, True),
-             ("ragged75x101 no-invert", rag[None], 8, 16, False),
-             ("random256x320 (64-bit priority)", rnd[None], 32, 192, True),
-             ("doc512 x4 batch", batch, 16, 128, True)]
-    worst = 0
-    for name, pages, W, R, invert in cases:
+    roll = lambda n: np.stack([np.roll(doc, (rs.randint(512), rs.randint(512)),
+                                       axis=(0, 1)) for _ in range(n)])
+    small = np.random.RandomState(3).rand(2, 96, 130) < 0.3
+    # name, pages, W, R, invert, y_base
+    cases = [("doc512", doc[None], 16, 128, True, 0),
+             ("ragged75x101", rag[None], 8, 16, True, 0),
+             ("ragged75x101 no-invert", rag[None], 8, 16, False, 0),
+             ("random256x320 (64-bit priority)", rnd[None], 32, 192, True, 0),
+             ("random96x130 x2 W=5", small, 5, 10, True, 0),
+             ("random96x130 x2 W=12 y_base=24", small, 12, 36, True, 24),
+             ("random96x130 x2 y_base=-16", small, 16, 48, True, -16),
+             ("doc512 W=8 y_base=64", doc[None], 8, 64, True, 64),
+             ("doc512 W=32", doc[None], 32, 96, True, 0),
+             ("doc512 x4 batch", roll(4), 16, 128, True, 0),
+             ("doc512 x32 batch", roll(32), 16, 128, True, 0)]
+    worst = worst_plane = 0
+    for name, pages, W, R, invert, y_base in cases:
         B, rows, cols = pages.shape
         ny, nx = -(-rows // W), -(-cols // W)
-        T_thresh = 2
         img = grid_of(pages, W, dev)
         He = fs.plane_height(ny * W, W, R)
-        E = fs.to_i32(fs._field_plane(img, W, He, nx * W)).contiguous()
-        kw = dict(W=W, R=R, T_thresh=T_thresh, cols=cols, invert=invert,
-                  y_base=0)
+        E = fs._launch_plane(img, W, He)
+        plain_E = fs.to_i32(fs._field_plane(img, W, He, nx * W))
+        kw = dict(W=W, R=R, T_thresh=2, cols=cols, invert=invert,
+                  y_base=y_base)
         got = fs._launch(E, ny, nx, **kw)
-        want = fs.fused_search_select_plain(E, ny, nx, **kw)
+        want = fs.fused_search_select_plain(plain_E, ny, nx, **kw)
         torch.cuda.synchronize()
+        err_p = int((E.to(torch.int64) - plain_E.to(torch.int64)).abs().max())
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        worst = max(worst, err)
-        log(f"K1 {name}: W={W} R={R} B={B} T={ny * nx} "
-            f"max_abs_err={err} found={int(got[..., 3].sum())}")
-        if err != 0:
+        worst, worst_plane = max(worst, err), max(worst_plane, err_p)
+        log(f"K1 {name}: W={W} R={R} B={B} T={ny * nx} y_base={y_base} "
+            f"plane max_abs_err={err_p}, search max_abs_err={err} "
+            f"found={int(got[..., 3].sum())}")
+        if err != 0 or err_p != 0:
             raise AssertionError(f"K1 disagrees with its plain version on "
                                  f"{name}")
-    return worst
+    return worst, worst_plane
 
 
 def check_k2(dc, compress, dev) -> int:
@@ -613,22 +626,56 @@ def stage_times(compress, fs, bitpack, codec, pnm, dev, gpu):
     return img, sel, out
 
 
+def plane_by_conv(fs, img, W: int, He: int):
+    """The library yardstick of K1's plane: one float32 convolution of the
+    zero-padded page with the row kernel 2^(W-1) .. 2^0.  Returns (call,
+    True if it equals the plane kernel's output)."""
+    B, gh, gw = img.shape
+    x = torch.zeros((B, 1, He, gw + W - 1), dtype=torch.float32,
+                    device=img.device)
+    x[:, 0, :gh, :gw] = img
+    w = (2.0 ** torch.arange(W - 1, -1, -1, device=img.device)).view(
+        1, 1, 1, W)
+    call = lambda: torch.nn.functional.conv2d(x, w)
+    same = torch.equal(call()[:, 0].round().to(torch.int64),
+                       fs._launch_plane(img, W, He).to(torch.int64))
+    return call, same
+
+
 def kernel_times(compress, fs, dc, roofline, img, out, dev, gpu):
-    """K1 and K2 beside their plain versions at doc512's shapes."""
+    """K1's two kernels and K2 beside their plain versions at doc512's
+    shapes (one page); K1's kernels also by torch.profiler at one page and
+    at the batch `img` holds."""
     W, R, T_thresh, rows, cols = 16, 128, 1, 512, 512
     ny = nx = 32
-    E = fs.to_i32(fs._field_plane(img, W, fs.plane_height(512, W, R),
-                                  512)).contiguous()
+    He = fs.plane_height(512, W, R)
+    one = img[:1]
+    E = fs._launch_plane(one, W, He)
     kw = dict(W=W, R=R, T_thresh=T_thresh, cols=cols, invert=True, y_base=0)
     k1 = cuda_ms(lambda: fs._launch(E, ny, nx, **kw), 20)
     k1p = cuda_ms(lambda: fs.fused_search_select_plain(E, ny, nx, **kw), 3)
+    kpl = cuda_ms(lambda: fs._launch_plane(one, W, He), 20)
+    kplp = cuda_ms(lambda: fs.to_i32(fs._field_plane(one, W, He, cols)), 20)
+    conv, same = plane_by_conv(fs, one, W, He)
+    kpll = cuda_ms(conv, 20) if same else None
     i32 = lambda t: t.to(torch.int32).contiguous()
     a = (i32(out["weights4"]), i32(out["has_cands"]), i32(out["idx_len"]),
          torch.from_numpy(compress.enb_lut(W * W)).to(dev))
     k2 = cuda_ms(lambda: dc._launch(*a, codec_id=8), 20)
     k2p = cuda_ms(lambda: dc.decide_modes_plain(*a, codec_id=8), 2)
-    log(f"K1 kernel {k1:.4f} ms vs plain {k1p:.3f} ms; K2 kernel {k2:.4f} ms "
-        f"vs plain {k2p:.3f} ms (doc512 x{img.shape[0]}, W=16 R=128) [{gpu}]")
+    log(f"K1 search kernel {k1:.4f} ms vs plain {k1p:.3f} ms; K1 plane "
+        f"kernel {kpl:.4f} ms vs plain {kplp:.4f} ms, conv2d "
+        f"{nd(kpll)} ({'== the plane' if same else 'not exact, not used'}); "
+        f"K2 kernel {k2:.4f} ms vs plain {k2p:.3f} ms (doc512 x1, W=16 "
+        f"R=128) [{gpu}]")
+    for pages in (one, img):
+        B = pages.shape[0]
+        dpl, dse = device_times(
+            lambda: fs.fused_search_select(pages, ny, nx, **kw),
+            ("field_plane_kernel", "fused_search_kernel"), 20)
+        per = "" if dse is None else f" ({dse / B:.4f} ms per page)"
+        log(f"  K1 device time by kernel (torch.profiler, mean of 20 calls), "
+            f"doc512 x{B}: plane {nd(dpl)}, search {nd(dse)}{per} [{gpu}]")
     T = ny * nx
     # K2's chain: the device time of one page's launch at T and 4T tiles
     # (random weights, M = 256) gives the time of one dependent step
@@ -652,8 +699,12 @@ def kernel_times(compress, fs, dc, roofline, img, out, dev, gpu):
     k1_bound = roofline.bound_ms(
         popcounts=roofline.search_popcounts(rows, cols, W, R),
         nbytes=roofline.k1_bytes(*E.shape, T))
+    pl_bound = roofline.bound_ms(
+        nbytes=roofline.plane_bytes(1, rows, cols, He))
     k2_bound = roofline.bound_ms(nbytes=roofline.k2_bytes(1, T, W * W))
-    return k1, k1p, k2, k2p, k1_bound, k2_bound
+    return dict(k1=(k1, k1p, k1_bound, None),
+                plane=(kpl, kplp, pl_bound, kpll),
+                k2=(k2, k2p, k2_bound, None))
 
 
 def new_path_times(compress, codec, st, sw, search, pnm, roofline, dev, gpu):
@@ -733,7 +784,7 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             log("  ptxas: " + line.strip())
 
-    err1 = check_k1(fs, pnm, dev)
+    err1, err1p = check_k1(fs, pnm, dev)
     err2 = check_k2(dc, compress, dev)
     err3 = check_k3(st, compress, pnm, dev)
     err4 = check_k4(sw, search, pnm, dev)
@@ -742,7 +793,8 @@ def main() -> int:
 
     causal = drive("causal", lambda: main_path(compress, archive, codec,
                                                native, pnm),
-                   _cuda, ("fused_search_select", "decide_modes"))
+                   _cuda, ("field_plane", "fused_search_select",
+                           "decide_modes"))
     strict_c = drive("strict", lambda: strict_path(compress, codec, native,
                                                    pnm),
                      _cuda, ("strict_analyze",))
@@ -753,9 +805,8 @@ def main() -> int:
                    _cuda, ("packed_dist_matrix", "packed_row_weight"))
 
     img, _, out = stage_times(compress, fs, bitpack, codec, pnm, dev, gpu)
-    k1, k1p, k2, k2p, b1, b2 = kernel_times(
-        compress, fs, dc, roofline, img[:1],
-        {k: v[:1] for k, v in out.items()}, dev, gpu)
+    kt = kernel_times(compress, fs, dc, roofline, img,
+                      {k: v[:1] for k, v in out.items()}, dev, gpu)
     k3, k3p, b3, k4, k4p, b4 = new_path_times(
         compress, codec, st, sw, search, pnm, roofline, dev, gpu)
     k5, k5p, k6, k6p, lib5, lib6 = bsvd_times(codec, bsvd, pd, pnm, dev, gpu)
@@ -772,11 +823,13 @@ def main() -> int:
                     max_abs_err=err, ms=ms, plain_ms=plain,
                     bound_ms=bound[0], bound_by=bound[1], library_ms=lib)
     kernels = [
+        entry("field_plane", "fused_search.cu", "pallas_kernels.py:451",
+              causal["field_plane"], err1p, *kt["plane"]),
         entry("fused_search_select", "fused_search.cu",
               "pallas_kernels.py:541", causal["fused_search_select"], err1,
-              k1, k1p, b1, None),
+              *kt["k1"]),
         entry("decide_modes", "decide_modes.cu", "pallas_decide.py:100",
-              causal["decide_modes"], err2, k2, k2p, b2, None),
+              causal["decide_modes"], err2, *kt["k2"]),
         entry("strict_analyze", "strict_analyze.cu", "pallas_strict.py:61",
               strict_c["strict_analyze"], err3, k3, k3p, b3, None),
         entry("select_windows", "select_windows.cu", "pallas_kernels.py:407",

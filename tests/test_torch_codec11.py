@@ -113,6 +113,7 @@ def _verdict(decode, codec_id, W, rows, cols):
     (8, 16, 2 ** 15 + 1, 2 ** 15),    # just over 2^30: the port refused it
     (8, 16, 2 ** 16, 2 ** 15),        # 2^31 pixels, the bound
     (8, 16, 2 ** 16 + 1, 2 ** 15),    # over 2^31
+    (8, 0, 2 ** 15 + 1, 2 ** 15),     # W = 0 past the native bound
     (11, 16, 2 ** 15 + 1, 2 ** 15),
     (11, 0, 64, 64), (11, 65, 64, 64), (11, 64, 64, 64),
     (8, 16, 0, 64)])
@@ -126,6 +127,7 @@ def test_header_bounds_match_jax(monkeypatch, codec_id, W, rows, cols):
     monkeypatch.setattr(jnative, "decode_windowed", passed)
     monkeypatch.setattr(jcodec, "_decode_bsvd", passed)
     monkeypatch.setattr(native, "decode_windowed", passed)
+    monkeypatch.setattr(codec, "_decode_windowed", passed)  # past 2^30
     monkeypatch.setattr(codec, "_decode_bsvd", passed)
     want = _verdict(jcodec.decode, codec_id, W, rows, cols)
     assert _verdict(codec.decode, codec_id, W, rows, cols) == want

@@ -36,24 +36,48 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("rows,cols,W,R,invert", [
-    (75, 101, 8, 16, True), (96, 128, 16, 64, False),
-    (256, 320, 32, 192, True)])
-def test_k1_kernel_matches_plain(dev, rows, cols, W, R, invert):
-    pages = np.random.RandomState(rows).rand(2, rows, cols) < 0.3
+def _k1_pages(rows, cols, W, B, dev):
+    pages = np.random.RandomState(rows + W).rand(B, rows, cols) < 0.3
     ny, nx = -(-rows // W), -(-cols // W)
-    grid = np.zeros((2, ny * W, nx * W), dtype=bool)
+    grid = np.zeros((B, ny * W, nx * W), dtype=bool)
     grid[:, :rows, :cols] = pages
-    img = torch.from_numpy(grid).to(dev)
-    E = fs.to_i32(fs._field_plane(img, W, fs.plane_height(ny * W, W, R),
-                                  nx * W)).contiguous()
-    kw = dict(W=W, R=R, T_thresh=1, cols=cols, invert=invert, y_base=0)
-    before = _cuda.launches["fused_search_select"]
-    got = fs._launch(E, ny, nx, **kw)
-    assert _cuda.launches["fused_search_select"] == before + 1
-    want = fs.fused_search_select_plain(E, ny, nx, **kw)
+    return torch.from_numpy(grid).to(dev), ny, nx
+
+
+# W = 5 and 12 take the kernel's run-time-W instance; y_base != 0 moves the
+# masks and keys to absolute rows (negative under tile sharding)
+K1_CASES = [(75, 101, 8, 16, True, 0), (96, 128, 16, 64, False, 0),
+            (256, 320, 32, 192, True, 0), (40, 53, 5, 10, True, 0),
+            (60, 84, 12, 24, True, 12), (96, 128, 16, 64, True, 32),
+            (64, 80, 16, 48, True, -24)]
+
+
+@pytest.mark.parametrize("rows,cols,W,R,invert,y_base", K1_CASES)
+def test_k1_kernel_matches_plain(dev, rows, cols, W, R, invert, y_base):
+    img, ny, nx = _k1_pages(rows, cols, W, 3, dev)
+    kw = dict(W=W, R=R, T_thresh=1, cols=cols, invert=invert, y_base=y_base)
+    before = dict(_cuda.launches)
+    got, oy, E = fs.fused_search_select(img, ny, nx, **kw)
+    for name in ("field_plane", "fused_search_select"):
+        assert _cuda.launches[name] == before.get(name, 0) + 1
+    want = fs.fused_search_select_plain(
+        fs.to_i32(fs._field_plane(img, W, E.shape[1], nx * W)), ny, nx, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    assert int(got[..., 3].sum()) > 0
+
+
+@pytest.mark.parametrize("rows,cols,W,R", [(75, 101, 8, 16), (40, 53, 5, 10),
+                                           (60, 84, 12, 24),
+                                           (96, 128, 16, 64),
+                                           (256, 320, 32, 192)])
+def test_field_plane_kernel_matches_plain(dev, rows, cols, W, R):
+    img, ny, nx = _k1_pages(rows, cols, W, 2, dev)
+    He = fs.plane_height(ny * W, W, R)
+    got = fs._launch_plane(img, W, He)
+    want = fs.to_i32(fs._field_plane(img, W, He, nx * W))
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("codec_id", [4, 7, 8])

@@ -94,6 +94,8 @@ def test_bytes_only_kernels():
     assert roofline.k4_bytes(1, 64, 3, 5) == 4 * (64 * 15 + 128) + 4 * 512
     assert roofline.k1_bytes(2, 640, 512, 1024) == 4 * 2 * (640 * 512
                                                             + 1024 * 8)
+    # doc512 at W=16, R=128: 0/1 bytes in, a 512-row int32 plane out
+    assert roofline.plane_bytes(1, 512, 512, 512) == 512 * 512 * 5
 
 
 @pytest.mark.parametrize("W,R,gh,gw", [(16, 128, 512, 512),
