@@ -1,6 +1,6 @@
 // Device helpers shared by the selection kernels K1 (fused_search.cu), K3
-// (strict_analyze.cu) and K4 (select_windows.cu), and the Golomb update
-// K2 (decide_modes.cu) and K3 share.
+// (strict_analyze.cu) and K4 (select_windows.cu), and the Golomb-k
+// searches of K3 (golomb_k, a warp vote) and K2 (golomb_k_lane, per lane).
 //
 // The serial-scan selection is ONE min over a 64-bit packed priority
 //     stop ? key << (db+1) | d' << 1 | inv : FLAG | d' << (kb+1) | key << 1 | inv
@@ -213,6 +213,28 @@ __device__ __forceinline__ Selected packed_decode(unsigned long long pu,
 __device__ __forceinline__ int golomb_k(unsigned n, unsigned acc) {
   const unsigned ok = __ballot_sync(kFull, (n << (threadIdx.x & 31)) >= acc);
   return ok ? __ffs(ok) - 1 : 31;
+}
+
+// The same k for one lane's own (n, acc), with no warp vote, so that lanes
+// may hold different contexts (K2's rounds).  acc > n >= 1: n << k0, with
+// k0 = clz(n) - clz(acc), has acc's top bit, so k is k0 or k0 + 1 by one
+// compare while n << k does not wrap (k <= clz(n)); past that, acc >= 2^31
+// and a short loop, the only branch, tests the wrapped shifts.
+// ops/decide.py::golomb_k_lane mirrors it.
+static __device__ __noinline__ int golomb_k_wrapped(unsigned n, unsigned acc,
+                                                    int k0) {
+  for (int k = k0 + 1; k < 32; ++k)
+    if ((n << k) >= acc) return k;
+  return 31;
+}
+
+__device__ __forceinline__ int golomb_k_lane(unsigned n, unsigned acc) {
+  const int cn = __clz(n);                           // 32 for n = 0
+  const int k0 = min(max(cn - __clz(acc), 0), 31);   // clamped for acc <= n
+  const bool ge = (n << k0) >= acc;
+  int k = ge ? k0 : k0 + 1;
+  if (!ge && k0 == cn && acc > n) k = golomb_k_wrapped(n, acc, k0);
+  return acc <= n ? 0 : cn == 32 ? 31 : k;
 }
 
 }  // namespace bic

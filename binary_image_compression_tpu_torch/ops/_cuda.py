@@ -114,7 +114,7 @@ def _declare(lib) -> None:
     lib.bic_field_plane.restype = i
     lib.bic_field_plane.argtypes = [p, p] + [i] * 5 + [p]
     lib.bic_decide_modes.restype = i
-    lib.bic_decide_modes.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.bic_decide_modes.argtypes = [p] * 6 + [i] * 7 + [p]
     lib.bic_select_windows.restype = i
     lib.bic_select_windows.argtypes = [p] * 4 + [i] * 14 + [p]
     lib.bic_strict_analyze.restype = i

@@ -17,8 +17,10 @@ fields of two rows into one word).
 
 K2 and K3 are dependent chains, so their bound is no yardstick of the
 chain.  ``k3_chain_floor_ms`` gives the least time of the part of K3 that
-must stay in order: grid 1's popcounts on one SM.  K2's step has no such
-count (it is latency, not work); chip_smoke measures it on the card.
+must stay in order: grid 1's popcounts on one SM.  K2 decides a page in
+rounds of up to 32 tiles, so ``k2_rounds_floor`` is the least number of
+rounds a page of T tiles takes; a round's time is latency, not work, and
+chip_smoke measures it on the card.
 """
 
 from __future__ import annotations
@@ -87,6 +89,11 @@ def k2_bytes(B: int, T: int, M: int) -> int:
     """K2: weights [B, T, 4], has_cands and idx_len [B, T] and enb [M + 1]
     in, int32 [B, T, 3] out."""
     return 4 * (B * T * 4 + 2 * B * T + M + 1) + 4 * B * T * 3
+
+
+def k2_rounds_floor(T: int) -> int:
+    """K2's least rounds for a page of T tiles: one per window of 32."""
+    return -(-T // 32)
 
 
 def k3_bytes(gh: int, gw: int, W: int) -> int:

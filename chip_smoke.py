@@ -14,10 +14,12 @@ page), the banded fallback (``encode`` at W = 64 and W = 40) and BSVD
 at K = 512).  Every codec-8 stream is checked byte for byte against the
 native host encoder, the codec-11 stream against the same encode on the
 CPU, and each is round-tripped; stages and kernels are timed with CUDA
-events (K1's and K3's kernels and K2's step also by torch.profiler's device
-times), and each kernel's time is printed beside its least time on the card
+events (K1's, K2's and K3's kernels also by torch.profiler's device times),
+and each kernel's time is printed beside its least time on the card
 (``utils/roofline``) and, for K1's plane, K5 and K6, the one PyTorch call
-that computes the same function.  Imports no JAX.
+that computes the same function.  K2's round counter is held against the
+CPU model of its order of work, and K2 is timed beside its serial design
+(``scripts/k2_serial.cu``, built beside the kernels).  Imports no JAX.
 
 Any failure raises and exits non-zero; without CUDA it exits 1 at once.  The
 last line of standard output is a JSON object:
@@ -135,39 +137,80 @@ def check_k1(fs, pnm, dev) -> tuple[int, int]:
     return worst, worst_plane
 
 
-def check_k2(dc, compress, dev) -> int:
-    """K2 == its plain version == the host replay, at M = 256 and
-    at M = 4096 (W = 64, an enb LUT of 4097 entries)."""
+def adversarial_k2(M: int, T: int, B: int = 1):
+    """K2's worst case: nomatch only, weights alternating M, 0, so k changes
+    on every tile.  (weights4, has_cands, idx_len) int32 [B, T, ...]."""
+    w4 = np.full((B, T, 4), M, dtype=np.int32)
+    w4[..., 2] = w4[..., 3] = np.where(np.arange(T) % 2 == 0, M, 0)
+    return w4, np.zeros((B, T), np.int32), np.ones((B, T), np.int32)
+
+
+def doc512_k2(compress, pnm, W: int, dev):
+    """doc512's K2 inputs from the port's analysis on the card."""
+    doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
+    out = compress.encode_analyze(torch.from_numpy(doc[None]).to(dev), W=W,
+                                  R=128, T_thresh=1, rows=512, cols=512)
+    return tuple(out[k].to(torch.int32).cpu().numpy()
+                 for k in ("weights4", "has_cands", "idx_len"))
+
+
+def check_k2(dc, compress, pnm, dev) -> int:
+    """K2 == its plain version == the host replay, with each page's round
+    count == the CPU model's (``decide.decide_rounds_model``): random
+    weights at M = 256 and at M = 4096 (W = 64, an enb LUT of 4097 entries),
+    the adversarial input (k changes on every tile) and doc512's own
+    weights at W = 16 and 32."""
     rs = np.random.RandomState(11)
-    worst = 0
+    cases = []
     for M, T in ((256, 1024), (256, 4096), (4096, 1024)):
         B = 2
-        enb = torch.from_numpy(compress.enb_lut(M)).to(dev)
-        w4 = rs.randint(0, M + 1, size=(B, T, 4)).astype(np.int32)
-        hc = (rs.rand(B, T) < 0.8).astype(np.int32)
-        il = rs.randint(1, 12, size=(B, T)).astype(np.int32)
+        cases.append((f"random M={M} T={T}", M, (4, 7, 8), (
+            rs.randint(0, M + 1, size=(B, T, 4)).astype(np.int32),
+            (rs.rand(B, T) < 0.8).astype(np.int32),
+            rs.randint(1, 12, size=(B, T)).astype(np.int32))))
+    cases.append(("adversarial M=256 T=1024", 256, (4, 7, 8),
+                  adversarial_k2(256, 1024, 2)))
+    for W in (16, 32):
+        cases.append((f"doc512 W={W}", W * W, (8,),
+                      doc512_k2(compress, pnm, W, dev)))
+    worst = 0
+    for name, M, codecs, (w4, hc, il) in cases:
+        enb_np = compress.enb_lut(M)
+        enb = torch.from_numpy(enb_np).to(dev)
         tw4, thc, til = (torch.from_numpy(a).to(dev) for a in (w4, hc, il))
-        for cid in (4, 7, 8):
-            got = torch.stack(dc._launch(tw4, thc, til, enb, codec_id=cid))
+        B = w4.shape[0]
+        for cid in codecs:
+            rounds = torch.full((B,), -1, dtype=torch.int32, device=dev)
+            got = torch.stack(dc._launch(tw4, thc, til, enb, codec_id=cid,
+                                         rounds=rounds))
             want = torch.stack(dc.decide_modes_plain(tw4, thc, til, enb,
                                                      codec_id=cid))
             err = int((got.to(torch.int64) - want.to(torch.int64))
                       .abs().max())
             worst = max(worst, err)
             g = got.cpu().numpy()
+            counts = []
             for b in range(B):
                 host = compress._decide_modes(
                     dict(weights4=w4[b], has_cands=hc[b] != 0,
                          idx_len=il[b]), M, cid)
+                model = dc.decide_rounds_model(w4[b], hc[b], il[b], enb_np,
+                                               codec_id=cid)
                 for k in range(3):
                     if not np.array_equal(g[k, b], host[k]):
                         raise AssertionError(
-                            f"K2 != host replay (T={T}, codec {cid})")
-            log(f"K2 M={M} T={T} B={B} codec {cid}: max_abs_err vs "
-                f"plain={err}, == host replay")
+                            f"K2 != host replay ({name}, codec {cid})")
+                counts.append((int(rounds[b]), model[3], model[4]))
+                if counts[-1][0] != model[3]:
+                    raise AssertionError(
+                        f"K2 took {counts[-1][0]} rounds on {name} page {b}, "
+                        f"codec {cid}; the CPU model {model[3]}")
+            log(f"K2 {name} B={B} codec {cid}: max_abs_err vs plain={err}, "
+                f"== host replay; rounds (card, model, serial tiles) per "
+                f"page {counts}")
             if err != 0:
                 raise AssertionError(f"K2 disagrees with its plain version "
-                                     f"(M={M}, T={T}, codec {cid})")
+                                     f"({name}, codec {cid})")
     return worst
 
 
@@ -642,10 +685,132 @@ def plane_by_conv(fs, img, W: int, He: int):
     return call, same
 
 
-def kernel_times(compress, fs, dc, roofline, img, out, dev, gpu):
+K2_SERIAL = os.path.join(REPO, "scripts", "k2_serial.cu")
+
+
+def start_k2_serial_build(_cuda):
+    """Start nvcc on scripts/k2_serial.cu, K2's serial design (one dependent
+    step per tile), to run beside the kernels' own build."""
+    out = os.path.join(REPO, "build", "k2_serial")
+    os.makedirs(out, exist_ok=True)
+    lib = os.path.join(out, "libk2_serial.so")
+    proc = subprocess.Popen([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared",
+                             "-I", _cuda.CSRC, "-o", lib, K2_SERIAL],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, lib
+
+
+def load_k2_serial(_cuda, dc, build):
+    """Wait for the serial design's build; returns its launcher, with
+    ``dc._launch``'s inputs and int32 [B, T, 3] out."""
+    import ctypes
+    proc, path = build
+    _, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {K2_SERIAL}:\n{err[-3000:]}")
+    lib = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bic_decide_modes_serial.restype = i
+    lib.bic_decide_modes_serial.argtypes = [p] * 5 + [i] * 6 + [p]
+
+    def launch(w4, hc, il, enb, codec_id=8):
+        B, T, _ = w4.shape
+        out = torch.empty((B, T, 3), dtype=torch.int32, device=w4.device)
+        use_pred, mcost, ncost = dc.mode_costs(codec_id)
+        _cuda.check(lib.bic_decide_modes_serial(
+            *(p(t.data_ptr()) for t in (w4, hc, il, enb, out)), B, T,
+            enb.shape[0], int(use_pred), mcost, ncost,
+            _cuda.stream(w4.device)), "bic_decide_modes_serial")
+        return out
+    return launch
+
+
+def k2_times(dc, serial, roofline, a, a32, dev, gpu):
+    """K2 against its serial design (``scripts/k2_serial.cu``) on the same
+    inputs in one call (serial, rounds, rounds, serial): doc512 at 1 page
+    and at the batch of ``a32``, by CUDA events and by torch.profiler; the
+    random pair at T and 4T (M = 256) as ns per round, from the rounds the
+    kernel counted with the guard off; the adversarial input; and doc512
+    under each guard."""
+    dk, ds = "decide_modes_kernel", "decide_modes_serial_kernel"
+    rounds = lambda x, guard=dc.GUARD: _k2_rounds(dc, x, guard)
+    for x in (a, a32):
+        want = torch.stack(dc._launch(*x, codec_id=8), dim=-1)
+        if not torch.equal(serial(*x), want):
+            raise AssertionError("K2's serial design != K2")
+    for B, x in ((1, a), (a32[0].shape[0], a32)):
+        ev, dv = {}, {}
+        for name in ("serial", "rounds", "rounds", "serial"):
+            fn = ((lambda: serial(*x)) if name == "serial"
+                  else (lambda: dc._launch(*x, codec_id=8)))
+            ev.setdefault(name, []).append(cuda_ms(fn, 50))
+            dv.setdefault(name, []).append(
+                device_ms(fn, ds if name == "serial" else dk))
+        r = rounds(x)
+        log(f"K2 doc512 x{B} W=16 R=128 (serial, rounds, rounds, serial): "
+            f"rounds design {fmt(ev['rounds'])} ms by events, "
+            f"{fmt(dv['rounds'])} ms on the device (torch.profiler); serial "
+            f"design {fmt(ev['serial'])} ms by events, {fmt(dv['serial'])} "
+            f"ms on the device; rounds per page {min(r)}-{max(r)} (floor "
+            f"{roofline.k2_rounds_floor(x[0].shape[1])}) [{gpu}]")
+    T = a[0].shape[1]
+    rs = np.random.RandomState(5)
+    pair = []
+    for n in (T, 4 * T):
+        b = [torch.from_numpy(x.astype(np.int32)).to(dev) for x in (
+            rs.randint(0, 257, (1, n, 4)), rs.rand(1, n) < 0.8,
+            rs.randint(1, 12, (1, n)))] + [a[3]]
+        pair.append((device_ms(lambda: dc._launch(*b, codec_id=8, guard=0),
+                               dk),
+                     rounds(b, 0)[0],
+                     device_ms(lambda: dc._launch(*b, codec_id=8), dk),
+                     rounds(b)[0], device_ms(lambda: serial(*b), ds)))
+    (t1, r1, g1, q1, s1), (t4, r4, g4, q4, s4) = pair
+    if None not in (t1, t4, s1, s4):
+        per_round = (t4 - t1) / (r4 - r1)
+        step = (s4 - s1) / (3 * T)
+        log(f"K2 random M=256 (torch.profiler, mean of 20): guard off "
+            f"{t1:.4f} ms in {r1} rounds at T={T}, {t4:.4f} ms in {r4} "
+            f"rounds at T={4 * T}: {per_round * 1e6:.2f} ns per round "
+            f"({per_round * 1e-3 * roofline.H100_CLOCK_HZ:.0f} clocks at 1.98 "
+            f"GHz); with the guard {g1:.4f} / {g4:.4f} ms ({q1} / {q4} "
+            f"rounds); serial design {s1:.4f} / {s4:.4f} ms, "
+            f"{step * 1e6:.2f} ns per step [{gpu}]")
+    else:
+        log(f"K2 random M=256: device time not measured [{gpu}]")
+    adv = [torch.from_numpy(x).to(dev) for x in adversarial_k2(256, T)]
+    adv.append(a[3])
+    ta, tsa = [], []
+    for _ in range(2):
+        tsa.append(device_ms(lambda: serial(*adv), ds))
+        ta.append(device_ms(lambda: dc._launch(*adv, codec_id=8), dk))
+    log(f"K2 adversarial M=256 T={T} (k changes on every tile; "
+        f"torch.profiler): rounds design {fmt(ta)} ms ({rounds(adv)[0]} "
+        f"rounds, the rest serial), serial design {fmt(tsa)} ms; guard off "
+        f"{nd(device_ms(lambda: dc._launch(*adv, codec_id=8, guard=0), dk))}"
+        f" [{gpu}]")
+    guards = {g: device_ms(lambda: dc._launch(*a, codec_id=8, guard=g), dk)
+              for g in (0, 2, 4)}
+    log("K2 doc512 x1 by guard (torch.profiler): " + ", ".join(
+        f"{g}: {nd(t)} ({rounds(a, g)[0]} rounds)" for g, t in guards.items())
+        + f" [{gpu}]")
+
+
+def _k2_rounds(dc, x, guard):
+    r = torch.zeros(x[0].shape[0], dtype=torch.int32, device=x[0].device)
+    dc._launch(*x, codec_id=8, rounds=r, guard=guard)
+    return r.tolist()
+
+
+def fmt(ts) -> str:
+    return " / ".join("not measured" if t is None else f"{t:.4f}" for t in ts)
+
+
+def kernel_times(compress, fs, dc, roofline, img, out, serial, dev, gpu):
     """K1's two kernels and K2 beside their plain versions at doc512's
-    shapes (one page); K1's kernels also by torch.profiler at one page and
-    at the batch `img` holds."""
+    shapes (one page); K1's kernels also by torch.profiler, and K2 by
+    ``k2_times``, at one page and at the batch `img` holds."""
     W, R, T_thresh, rows, cols = 16, 128, 1, 512, 512
     ny = nx = 32
     He = fs.plane_height(512, W, R)
@@ -659,8 +824,10 @@ def kernel_times(compress, fs, dc, roofline, img, out, dev, gpu):
     conv, same = plane_by_conv(fs, one, W, He)
     kpll = cuda_ms(conv, 20) if same else None
     i32 = lambda t: t.to(torch.int32).contiguous()
-    a = (i32(out["weights4"]), i32(out["has_cands"]), i32(out["idx_len"]),
-         torch.from_numpy(compress.enb_lut(W * W)).to(dev))
+    enb = torch.from_numpy(compress.enb_lut(W * W)).to(dev)
+    a32 = (i32(out["weights4"]), i32(out["has_cands"]), i32(out["idx_len"]),
+           enb)
+    a = tuple(x[:1] for x in a32[:3]) + (enb,)
     k2 = cuda_ms(lambda: dc._launch(*a, codec_id=8), 20)
     k2p = cuda_ms(lambda: dc.decide_modes_plain(*a, codec_id=8), 2)
     log(f"K1 search kernel {k1:.4f} ms vs plain {k1p:.3f} ms; K1 plane "
@@ -677,25 +844,7 @@ def kernel_times(compress, fs, dc, roofline, img, out, dev, gpu):
         log(f"  K1 device time by kernel (torch.profiler, mean of 20 calls), "
             f"doc512 x{B}: plane {nd(dpl)}, search {nd(dse)}{per} [{gpu}]")
     T = ny * nx
-    # K2's chain: the device time of one page's launch at T and 4T tiles
-    # (random weights, M = 256) gives the time of one dependent step
-    rs = np.random.RandomState(5)
-    t2 = []
-    for n in (T, 4 * T):
-        b = [torch.from_numpy(x.astype(np.int32)).to(dev) for x in (
-            rs.randint(0, W * W + 1, (1, n, 4)), rs.rand(1, n) < 0.8,
-            rs.randint(1, 12, (1, n)))]
-        t2.append(device_ms(lambda: dc._launch(*b, a[3], codec_id=8),
-                            "decide_modes_kernel"))
-    if None not in t2:
-        step = (t2[1] - t2[0]) / (3 * T)
-        log(f"K2 chain (torch.profiler, mean of 20): one page {t2[0]:.4f} ms "
-            f"at T={T}, {t2[1]:.4f} ms at T={4 * T}: {step * 1e6:.2f} ns per "
-            f"step ({step * 1e-3 * roofline.H100_CLOCK_HZ:.0f} clocks at 1.98 "
-            f"GHz), so the chain is {step * T:.4f} ms of a page at T={T} "
-            f"[{gpu}]")
-    else:
-        log(f"K2 chain: device time not measured [{gpu}]")
+    k2_times(dc, serial, roofline, a, a32, dev, gpu)
     k1_bound = roofline.bound_ms(
         popcounts=roofline.search_popcounts(rows, cols, W, R),
         nbytes=roofline.k1_bytes(*E.shape, T))
@@ -777,15 +926,18 @@ def main() -> int:
     native.get_lib()
     log(f"build: native host library {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    serial_build = start_k2_serial_build(_cuda)
     report = _cuda.build()
     _cuda.get_lib()
-    log(f"build: CUDA kernels (nvcc sm_90a) {time.perf_counter() - t0:.1f} s")
+    serial = load_k2_serial(_cuda, dc, serial_build)
+    log(f"build: CUDA kernels (nvcc sm_90a), and K2's serial design beside "
+        f"them, {time.perf_counter() - t0:.1f} s")
     for line in report.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log("  ptxas: " + line.strip())
 
     err1, err1p = check_k1(fs, pnm, dev)
-    err2 = check_k2(dc, compress, dev)
+    err2 = check_k2(dc, compress, pnm, dev)
     err3 = check_k3(st, compress, pnm, dev)
     err4 = check_k4(sw, search, pnm, dev)
     err5 = check_k5(pd, bsvd, dev)
@@ -805,8 +957,8 @@ def main() -> int:
                    _cuda, ("packed_dist_matrix", "packed_row_weight"))
 
     img, _, out = stage_times(compress, fs, bitpack, codec, pnm, dev, gpu)
-    kt = kernel_times(compress, fs, dc, roofline, img,
-                      {k: v[:1] for k, v in out.items()}, dev, gpu)
+    kt = kernel_times(compress, fs, dc, roofline, img, out, serial, dev,
+                      gpu)
     k3, k3p, b3, k4, k4p, b4 = new_path_times(
         compress, codec, st, sw, search, pnm, roofline, dev, gpu)
     k5, k5p, k6, k6p, lib5, lib6 = bsvd_times(codec, bsvd, pd, pnm, dev, gpu)

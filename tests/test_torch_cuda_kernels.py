@@ -114,6 +114,47 @@ def test_k2_kernel_at_w64_matches_plain_and_host(dev):
     np.testing.assert_array_equal(got[:, 0].cpu().numpy(), np.stack(host))
 
 
+def _k2_pages(case, dev):
+    """(weights4, has_cands, idx_len, M) of one page, as numpy arrays."""
+    if case == "adversarial":              # k changes on every tile
+        T, M = 1024, 256
+        w4 = np.full((T, 4), M, dtype=np.int32)
+        w4[:, 2] = w4[:, 3] = np.where(np.arange(T) % 2 == 0, M, 0)
+        return w4, np.zeros(T, bool), np.ones(T, np.int32), M
+    if case == "M=4096":
+        rs = np.random.RandomState(4096)
+        return (rs.randint(0, 4097, size=(1024, 4)).astype(np.int32),
+                rs.rand(1024) < 0.8,
+                rs.randint(1, 12, size=1024).astype(np.int32), 4096)
+    W = int(case.split("=")[1])
+    doc = pnm.read_pbm(os.path.join(FIX, "doc512.pbm"))
+    out = compress.encode_analyze(torch.from_numpy(doc[None]).to(dev), W=W,
+                                  R=128, T_thresh=1, rows=512, cols=512)
+    return (out["weights4"][0].to(torch.int32).cpu().numpy(),
+            out["has_cands"][0].cpu().numpy(),
+            out["idx_len"][0].to(torch.int32).cpu().numpy(), W * W)
+
+
+@pytest.mark.parametrize("guard", [0, dc.GUARD])
+@pytest.mark.parametrize("case", ["adversarial", "doc512 W=16",
+                                  "doc512 W=32", "M=4096"])
+def test_k2_rounds_match_model(dev, case, guard):
+    """The kernel == the plain version, and its round counter == the CPU
+    model's count (ops/decide.decide_rounds_model)."""
+    w4, hc, il, M = _k2_pages(case, dev)
+    args = [torch.from_numpy(a[None].astype(np.int32)).to(dev)
+            for a in (w4, hc, il)]
+    enb = torch.from_numpy(compress.enb_lut(M)).to(dev)
+    rounds = torch.full((1,), -1, dtype=torch.int32, device=dev)
+    got = torch.stack(dc._launch(*args, enb, codec_id=8, rounds=rounds,
+                                 guard=guard))
+    want = torch.stack(dc.decide_modes_plain(*args, enb, codec_id=8))
+    assert torch.equal(got, want)
+    model = dc.decide_rounds_model(w4, hc, il, compress.enb_lut(M),
+                                   codec_id=8, guard=guard)
+    assert int(rounds[0]) == model[3]
+
+
 def _feedback_image():
     """Repeated tiles force matches on residuals earlier tiles substituted
     (the image of tests/test_pallas_strict.py, RandomState(12345))."""

@@ -8,7 +8,7 @@ import os
 import pytest
 import torch
 
-from binary_image_compression_tpu_torch.ops import fused_search, strict
+from binary_image_compression_tpu_torch.ops import decide, fused_search, strict
 from binary_image_compression_tpu_torch.utils import pnm, roofline
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
@@ -96,6 +96,13 @@ def test_bytes_only_kernels():
                                                             + 1024 * 8)
     # doc512 at W=16, R=128: 0/1 bytes in, a 512-row int32 plane out
     assert roofline.plane_bytes(1, 512, 512, 512) == 512 * 512 * 5
+
+
+@pytest.mark.parametrize("T,rounds", [(1, 1), (32, 1), (33, 2), (1024, 32),
+                                      (4096, 128)])
+def test_k2_rounds_floor(T, rounds):
+    assert roofline.k2_rounds_floor(T) == rounds
+    assert roofline.k2_rounds_floor(T) == -(-T // decide.ROUND)
 
 
 @pytest.mark.parametrize("W,R,gh,gw", [(16, 128, 512, 512),
