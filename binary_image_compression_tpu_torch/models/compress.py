@@ -11,8 +11,8 @@ Causal mode, per batch of same-sized pages, on the device:
   1. packed int32 pages in, unpacked to 0/1;
   2. the search and serial-scan selection: kernel K1 (ops/fused_search) on
      the W-bit row-field plane, or, for shapes K1 does not take (W > 32, a
-     band over its budget), the banded distance maps (ops/search) and
-     kernel K4 (ops/select_windows);
+     band over its budget), kernel K4 (ops/select_windows) on a 64-bit
+     plane;
   3. the finish: candidate gathers, inversion, MED, weights, residual words;
   4. kernel K2 (ops/decide): the mode decision;
   5. the chosen residual plus a packed header word, one int32 [B, T, 2+nw]
@@ -139,17 +139,17 @@ def encode_analyze(img, *, W: int, R: int, T_thresh: int, rows: int,
             img, ny, nx, W=W, R=R, T_thresh=T_thresh, cols=cols,
             invert=invert)
         return finish_analysis(img, sel, oy, plane, W=W, nx=nx)
-    # the banded fallback (compress.py:128-135 of the JAX package)
-    d, oy, ox = search.window_distance_maps_banded(img, W, R)
-    sel = select_windows.select_windows(d, oy, ox, nx, W=W, R=R,
-                                        T_thresh=T_thresh, cols=cols,
-                                        invert=invert)
+    # the banded route (compress.py:128-135 of the JAX package): K4 scores
+    # the band from its own 64-bit plane and selects
+    sel, oy, _ = select_windows.select_windows(
+        img, ny, nx, W=W, R=R, T_thresh=T_thresh, cols=cols, invert=invert)
     return finish_analysis(img, sel, oy, None, W=W, nx=nx)
 
 
 def finish_analysis(img, sel, oy, plane, *, W: int, nx: int) -> dict:
     """The finish after the selection: the dict ``encode_analyze`` returns.
-    The field finish needs K1's plane; the banded route has none."""
+    The field finish reads K1's 32-bit plane; the banded route (plane
+    None) takes the dense finish."""
     if plane is not None and 32 % W == 0:
         weights4, residual4 = _finish_selection_fields(plane, sel, oy, W=W,
                                                        nx=nx)

@@ -116,7 +116,9 @@ def _declare(lib) -> None:
     lib.bic_decide_modes.restype = i
     lib.bic_decide_modes.argtypes = [p] * 6 + [i] * 7 + [p]
     lib.bic_select_windows.restype = i
-    lib.bic_select_windows.argtypes = [p] * 4 + [i] * 14 + [p]
+    lib.bic_select_windows.argtypes = [p] * 3 + [i] * 14 + [p]
+    lib.bic_banded_plane.restype = i
+    lib.bic_banded_plane.argtypes = [p, p] + [i] * 5 + [p]
     lib.bic_strict_analyze.restype = i
     lib.bic_strict_analyze.argtypes = [p] * 7 + [i] * 14 + [p]
     lib.bic_packed_dist_matrix.restype = i

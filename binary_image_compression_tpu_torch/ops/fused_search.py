@@ -70,8 +70,7 @@ def fused_supported(ny: int, nx: int, W: int, R: int) -> bool:
 
     W <= 32 (a tile row field per 32-bit word) and R >= W; the band bound is
     the JAX package's VMEM budget, kept so both packages route the same
-    shapes (the rest take the banded search, ``search.
-    window_distance_maps_banded`` + K4 ``select_windows``)."""
+    shapes (the rest take the banded search, K4 ``select_windows``)."""
     if W > 32 or R < W:
         return False
     k = next((kk for kk in (4, 3, 2) if W * kk <= 32 and W % kk == 0), 1)
@@ -252,8 +251,8 @@ def fused_search_select(img_bits, ny: int, nx: int, *, W: int, R: int,
     if not fused_supported(ny, nx, W, R) or packed_sel_layout(W, R) is None:
         raise NotImplementedError(
             f"W={W}, R={R}, {ny}x{nx} tiles: outside the fused search; "
-            "compress.encode_analyze takes the banded route (search."
-            "window_distance_maps_banded + select_windows) for this shape")
+            "compress.encode_analyze takes the banded route (K4, "
+            "select_windows) for this shape")
     He = plane_height(gh, W, R)
     kw = dict(W=W, R=R, T_thresh=T_thresh, cols=cols, invert=invert,
               y_base=y_base)

@@ -8,8 +8,6 @@ from __future__ import annotations
 
 import torch
 
-from .fused_search import _field_plane
-
 
 def tile_origins(rows: int, cols: int, W: int, device=None):
     """Raster-order (i0, j0) int64 [T] of the ceil-div tile grid, and (ny, nx)
@@ -40,29 +38,31 @@ def banded_origins(gh: int, gw: int, W: int, R: int, device=None):
     return oy, ox
 
 
-def window_distance_maps_banded(img: torch.Tensor, W: int, R: int):
-    """Distances from each tile to every cell of its search map.
+def window_distance_maps_banded(E: torch.Tensor, ny: int, nx: int, W: int,
+                                R: int):
+    """Distances from each tile to every cell of its search map: the map
+    half of K4's plain version (``select_windows.select_windows_plain``).
 
-    img: 0/1 [B, ny*W, nx*W] padded tile grids, W <= 64.  Returns (d, oy,
-    ox): d int32 [B, T, R+1, 2R+W+1], cell (r, c) of tile t being candidate
-    (oy[t] + r, ox[t] + c), with oy, ox int64 [T] from ``banded_origins``.
-    Every cell inside the tile's window is exact; cells outside it (past
-    the image, or beyond the window) hold arbitrary values that selection
-    never reads.
+    E: int64 [B, He, nx*W] W-bit row-field plane of the padded tile grids
+    (``fused_search._field_plane``), W <= 64; rows and columns the maps read
+    past it are zero.  Returns (d, oy, ox): d int32 [B, T, R+1, 2R+W+1],
+    cell (r, c) of tile t being candidate (oy[t] + r, ox[t] + c), with oy,
+    ox int64 [T] from ``banded_origins``.  Every cell inside the tile's
+    window is exact; cells outside it (past the image, or beyond the
+    window) hold arbitrary values that selection never reads.
 
-    d = sum_a popcount(F[y+a, x] ^ F[i0+a, j0]) over the W-bit row fields F
-    (int64, so W = 64 fits), one tile row at a time, so memory stays at
-    B * nx * (R+1) * (2R+W+1) words per step.  The JAX package contracts
-    bf16 patches on the MXU instead; both give the same integers."""
-    B, gh, gw = img.shape
-    dev = img.device
-    ny, nx = gh // W, gw // W
+    d = sum_a popcount(E[y+a, x] ^ E[i0+a, j0]), one tile row at a time, so
+    memory stays at B * nx * (R+1) * (2R+W+1) words per step.  The JAX
+    package contracts bf16 patches on the MXU instead; both give the same
+    integers."""
+    B, He, gw = E.shape
+    dev = E.device
     wh, ww = R + 1, 2 * R + W + 1
-    oy, ox = banded_origins(gh, gw, W, R, dev)
-    # rows and columns that any map reads, zero past the image
-    He = int(oy.max()) + wh + W - 1
-    We = int(ox.max()) + ww
-    F = _field_plane(img, W, He, We)
+    oy, ox = banded_origins(ny * W, gw, W, R, dev)
+    # rows and columns that any map reads, zero past the plane
+    Hm = int(oy.max()) + wh + W - 1
+    Wm = int(ox.max()) + ww
+    F = torch.nn.functional.pad(E, (0, max(Wm - gw, 0), 0, max(Hm - He, 0)))
     cidx = (ox[:nx, None] + torch.arange(ww, device=dev)).reshape(-1)
     j0 = torch.arange(nx, device=dev) * W
     d = torch.empty((B, ny, nx, wh, ww), dtype=torch.int32, device=dev)

@@ -1,26 +1,31 @@
-"""Kernel K4: serial-scan selection over precomputed distance maps.
+"""Kernel K4: the banded windowed search and serial-scan selection, W <= 64.
 
 Counterpart of ``select_windows`` (:407) in ``binary_image_compression_tpu/
 ops/pallas_kernels.py``, whose kernel runs the masked-grid
-``_selection_scalars`` (:147) on one tile's map per grid step.  The banded
-fallback search (``search.window_distance_maps_banded``) feeds it for the
-shapes K1 does not take: W from 33 to 64, and bands over K1's budget.
+``_selection_scalars`` (:147) on one tile's map per grid step, together
+with the distance maps that feed it (``search.window_distance_maps_banded``,
+:185 of the JAX package's ``ops/search.py``).  It takes the shapes K1 does
+not: W from 33 to 64, and bands over K1's budget.
 
-Per tile, each map cell (oy + r, ox + c) inside the causal window gets the
-packed (stop, d', key, inv) priority of K1 (``fused_search.
-packed_sel_layout``, 64-bit, so every W <= 64 fits); one min over them is
-the reference serial scan's outcome (stop-first, then the strict minimum
-of d' in scan order), and ``fused_search._packed_decode`` turns it into
-the 8 outputs, with n_cands and rank counting the y = i0-W row in both
-grids.  The closed-form counts equal the JAX kernel's masked sums because
-the banded maps cover the whole window (R >= W).
+Per tile, each candidate (y, x) of the causal window gets the Hamming
+distance to the tile over the W-bit row-field plane (one int64 word per
+field, so W = 64 fits) and the packed (stop, d', key, inv) priority of K1
+(``fused_search.packed_sel_layout``, 64-bit, so every W <= 64 fits); one
+min over them is the reference serial scan's outcome (stop-first, then the
+strict minimum of d' in scan order), and ``fused_search._packed_decode``
+turns it into the 8 outputs, with n_cands and rank counting the y = i0-W row
+in both grids.  The closed-form counts equal the JAX kernel's masked sums
+because the band covers the whole window (R >= W).
 
 Output columns are K1's (``fused_search.OUT_FIELDS``): column 1 is dy
-relative to oy and column 7 the absolute x, where the JAX kernel returns
-x relative to ox.
+relative to the banded origin oy (``search.banded_origins``) and column 7
+the absolute x, where the JAX kernel returns x relative to ox.
 
-``select_windows`` launches ``csrc/select_windows.cu`` for CUDA tensors and
-runs ``select_windows_plain`` for CPU tensors.
+``select_windows`` launches two CUDA kernels (``csrc/select_windows.cu``)
+for CUDA tensors, the 64-bit field plane (counted as ``banded_plane``) and
+the search (``select_windows``), and runs their plain versions,
+``fused_search._field_plane`` and ``select_windows_plain`` (the banded
+distance maps, then ``select_maps``), for CPU tensors.
 """
 
 from __future__ import annotations
@@ -29,15 +34,16 @@ import ctypes
 
 import torch
 
-from . import _cuda
-from .fused_search import (_packed_decode, _packed_priority,
-                           _packed_window_keys, packed_sel_layout)
+from . import _cuda, search
+from .fused_search import (_field_plane, _packed_decode, _packed_priority,
+                           _packed_window_keys, packed_sel_layout,
+                           plane_height)
 
 
 def _layout(W: int, R: int) -> dict:
     lay = packed_sel_layout(W, R)
-    if lay is None:
-        raise ValueError(f"selection over banded maps needs R >= W and a "
+    if lay is None or W > 64:
+        raise ValueError(f"the banded search needs W <= 64, R >= W and a "
                          f"64-bit priority (W={W}, R={R})")
     return lay
 
@@ -47,9 +53,10 @@ def _tile_coords(T: int, nx: int, W: int, device):
     return (t // nx) * W, (t % nx) * W
 
 
-def select_windows_plain(d, oy, ox, nx: int, *, W: int, R: int,
-                         T_thresh: int, cols: int, invert: bool):
-    """Plain PyTorch K4: d int32 [B, T, h, w] -> int32 [B, T, 8].
+def select_maps(d, oy, ox, nx: int, *, W: int, R: int, T_thresh: int,
+                cols: int, invert: bool):
+    """The selection over distance maps: d int32 [B, T, h, w], cell (r, c)
+    of tile t being candidate (oy[t] + r, ox[t] + c) -> int32 [B, T, 8].
 
     One tile row at a time, so the key and priority tensors stay at
     B * nx * h * w elements."""
@@ -77,38 +84,74 @@ def select_windows_plain(d, oy, ox, nx: int, *, W: int, R: int,
     return out
 
 
-def select_windows(d, oy, ox, nx: int, *, W: int, R: int, T_thresh: int,
-                   cols: int, invert: bool):
-    """K4 over a batch of pages' maps.
+def select_windows_plain(E, ny: int, nx: int, *, W: int, R: int,
+                         T_thresh: int, cols: int, invert: bool):
+    """Plain PyTorch K4: the int64 field plane [B, He, nx*W] -> int32
+    [B, ny*nx, 8]: the banded distance maps, then ``select_maps``."""
+    d, oy, ox = search.window_distance_maps_banded(E, ny, nx, W, R)
+    return select_maps(d, oy, ox, nx, W=W, R=R, T_thresh=T_thresh,
+                       cols=cols, invert=invert)
 
-    d: int32 [B, T, h, w] distance maps of the ny x nx tile grid; oy, ox:
-    int64 [T] map origins (``search.banded_origins``).  Returns int32
-    [B, T, 8] with columns ``fused_search.OUT_FIELDS``."""
+
+def select_windows(img_bits, ny: int, nx: int, *, W: int, R: int,
+                   T_thresh: int, cols: int, invert: bool):
+    """K4 over a batch of pages.
+
+    img_bits: 0/1 [B, ny*W, nx*W] padded tile grids.  Returns (sel int32
+    [B, T, 8] with columns ``fused_search.OUT_FIELDS``, oy int64 [T] banded
+    origins, E int64 [B, He, nx*W] the field plane as uint64 bit patterns,
+    He = ``fused_search.plane_height``)."""
+    _layout(W, R)
+    B, gh, gw = img_bits.shape
+    He = plane_height(gh, W, R)
     kw = dict(W=W, R=R, T_thresh=T_thresh, cols=cols, invert=invert)
-    if d.is_cuda:
-        return _launch(d, oy, ox, nx, **kw)
-    if d.device.type == "cpu":
-        return select_windows_plain(d, oy, ox, nx, **kw)
-    raise RuntimeError(f"K4 has no kernel for device {d.device}")
+    if img_bits.is_cuda:
+        E = _launch_plane(img_bits, W, He)
+        sel = _launch(E, ny, nx, **kw)
+    elif img_bits.device.type == "cpu":
+        E = _field_plane(img_bits, W, He, gw)
+        sel = select_windows_plain(E, ny, nx, **kw)
+    else:
+        raise RuntimeError(f"K4 has no kernel for device {img_bits.device}")
+    oy, _ = search.banded_origins(gh, gw, W, R, E.device)
+    return sel, oy, E
 
 
-def _launch(d, oy, ox, nx, *, W, R, T_thresh, cols, invert):
-    """Launch csrc/select_windows.cu: one block per (tile, page)."""
-    if d.dtype != torch.int32 or d.dim() != 4 or not d.is_contiguous():
-        raise ValueError("K4 takes contiguous int32 [B, T, h, w] maps")
+def _launch_plane(img_bits, W: int, He: int):
+    """Launch the plane kernel of csrc/select_windows.cu: 0/1 [B, gh, gw] ->
+    int64 [B, He, gw], one thread per field."""
+    if img_bits.dim() != 3 or not 1 <= W <= 64 or He < img_bits.shape[1]:
+        raise ValueError("the banded plane kernel takes 0/1 [B, gh, gw] "
+                         "pages, W <= 64 and He >= gh")
+    img = img_bits.contiguous()
+    img = img.view(torch.uint8) if img.dtype == torch.bool \
+        else img.to(torch.uint8)
+    B, gh, gw = img.shape
+    E = torch.empty((B, He, gw), dtype=torch.int64, device=img.device)
+    _cuda.check(_cuda.get_lib().bic_banded_plane(
+        ctypes.c_void_p(img.data_ptr()), ctypes.c_void_p(E.data_ptr()),
+        B, gh, gw, He, W, _cuda.stream(img.device)), "bic_banded_plane")
+    _cuda.launches["banded_plane"] += 1
+    return E
+
+
+def _launch(E, ny, nx, *, W, R, T_thresh, cols, invert):
+    """Launch the search of csrc/select_windows.cu: a few blocks per (tile,
+    page) merged by atomicMin, then the decode."""
+    if E.dtype != torch.int64 or E.dim() != 3 or not E.is_contiguous():
+        raise ValueError("K4 takes a contiguous int64 [B, He, We] plane")
     lay = _layout(W, R)
-    B, T, h, w = d.shape
-    oy32 = oy.to(device=d.device, dtype=torch.int32).contiguous()
-    ox32 = ox.to(device=d.device, dtype=torch.int32).contiguous()
-    if oy32.shape != (T,) or ox32.shape != (T,):
-        raise ValueError("K4: oy and ox must be [T]")
-    out = torch.empty((B, T, 8), dtype=torch.int32, device=d.device)
-    lib = _cuda.get_lib()
-    _cuda.check(lib.bic_select_windows(
-        ctypes.c_void_p(d.data_ptr()), ctypes.c_void_p(oy32.data_ptr()),
-        ctypes.c_void_p(ox32.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        B, T, h, w, nx, W, R, T_thresh, cols, int(invert), lay["span"],
-        lay["off1"], lay["kb"], lay["db"], _cuda.stream(d.device)),
-        "bic_select_windows")
+    B, He, We = E.shape
+    if He < W + R or We < nx * W:
+        raise ValueError(f"K4: a plane of {He} x {We} does not hold the "
+                         f"bands of {ny} x {nx} tiles (W={W}, R={R})")
+    T = ny * nx
+    best = torch.empty((B, T), dtype=torch.int64, device=E.device)
+    out = torch.empty((B, T, 8), dtype=torch.int32, device=E.device)
+    _cuda.check(_cuda.get_lib().bic_select_windows(
+        ctypes.c_void_p(E.data_ptr()), ctypes.c_void_p(best.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), B, He, We, nx, T, W, R, T_thresh,
+        cols, int(invert), lay["span"], lay["off1"], lay["kb"], lay["db"],
+        _cuda.stream(E.device)), "bic_select_windows")
     _cuda.launches["select_windows"] += 1
     return out

@@ -15,6 +15,9 @@ A window's distance needs its W x W bits XORed with the tile's and counted:
 ceil(W*W / 32) popcounts of 32-bit words (8 at W = 16, where K3 packs the
 fields of two rows into one word).
 
+K4 scores the same windows as K1 over a plane of 64-bit fields; its count
+is the windows' popcounts all the same (128 at W = 64).
+
 K2 and K3 are dependent chains, so their bound is no yardstick of the
 chain.  ``k3_chain_floor_ms`` gives the least time of the part of K3 that
 must stay in order: grid 1's popcounts on one SM.  K2 decides a page in
@@ -79,10 +82,10 @@ def k1_bytes(B: int, He: int, We: int, T: int) -> int:
     return 4 * B * He * We + 4 * B * T * 8
 
 
-def plane_bytes(B: int, gh: int, gw: int, He: int) -> int:
-    """K1's plane kernel: 0/1 bytes [B, gh, gw] in, the int32 field plane
-    [B, He, gw] out."""
-    return B * gh * gw + 4 * B * He * gw
+def plane_bytes(B: int, gh: int, gw: int, He: int, word: int = 4) -> int:
+    """A plane kernel: 0/1 bytes [B, gh, gw] in, the field plane [B, He, gw]
+    of `word`-byte fields out (4 for K1's, 8 for K4's)."""
+    return B * gh * gw + word * B * He * gw
 
 
 def k2_bytes(B: int, T: int, M: int) -> int:
@@ -109,10 +112,16 @@ def k3_chain_floor_ms(rows: int, cols: int, W: int, R: int) -> float:
     return g1 * window_popcounts(W) / H100_SM_POPC_PER_S * 1e3
 
 
-def k4_bytes(B: int, T: int, h: int, w: int) -> int:
-    """K4: int32 maps [B, T, h, w] and int32 origins [T] x 2 in, int32
-    [B, T, 8] out."""
-    return 4 * (B * T * h * w + 2 * T) + 4 * B * T * 8
+def k4_work(rows: int, cols: int, W: int, R: int, B: int = 1
+            ) -> tuple[int, int]:
+    """K4, the banded search and selection: (popcounts, bytes).  The
+    windows' popcounts whatever the word width that implements them; the
+    uint64 field plane [B, He, nx*W] in (He = max(ny*W, R+W), ops/
+    fused_search.plane_height), int32 [B, T, 8] out."""
+    ny, nx = -(-rows // W), -(-cols // W)
+    He = max(ny * W, R + W)
+    pops = B * search_popcounts(rows, cols, W, R)
+    return pops, 8 * B * He * nx * W + 4 * B * ny * nx * 8
 
 
 def k5_work(N: int, K: int, nw: int) -> tuple[int, int]:

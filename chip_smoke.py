@@ -4,17 +4,21 @@
 
 Builds the native host library and the CUDA kernels from this checkout,
 holds each kernel (K1's field plane and search, K2 decision, K3 strict
-analysis, K4 banded selection, K5 packed distances, K6 packed row weights)
-against its plain PyTorch version on the card, then drives the port's four paths, each with
+analysis, K4's 64-bit field plane and banded search, K5 packed distances,
+K6 packed row weights) against its plain PyTorch version on the card, then
+drives the port's four paths, each with
 the launch counts reset just before it and read just after: the causal
 encode (one 512x512 page, then a 64-page corpus through the archive
 writer), strict mode (``encode_strict`` on a 512x512 and a 512x2048
-page), the banded fallback (``encode`` at W = 64 and W = 40) and BSVD
+page), the banded route (``encode`` of doc512 at W = 64 and W = 40 and of
+a 3300x2550 letter page at W = 64, with a spy showing that no distance map
+was built on the card) and BSVD
 (codec 11 on one page, ``learn`` on both distance routes, the ``bsvd`` CLI
 at K = 512).  Every codec-8 stream is checked byte for byte against the
 native host encoder, the codec-11 stream against the same encode on the
 CPU, and each is round-tripped; stages and kernels are timed with CUDA
-events (K1's, K2's and K3's kernels also by torch.profiler's device times),
+events (K1's, K2's, K3's and K4's kernels also by torch.profiler's device
+times; the W = 16 and W = 64 encodes split into stages),
 and each kernel's time is printed beside its least time on the card
 (``utils/roofline``) and, for K1's plane, K5 and K6, the one PyTorch call
 that computes the same function.  K2's round counter is held against the
@@ -259,30 +263,57 @@ def check_k3(st, compress, pnm, dev) -> int:
     return worst
 
 
-def banded_maps(search, pnm, W, R, dev):
-    doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
-    return search.window_distance_maps_banded(grid_of(doc[None], W, dev),
-                                              W, R)
+def letter_page(doc: np.ndarray) -> np.ndarray:
+    """A US letter page at 300 dpi, 3300 x 2550: doc512 tiled and cropped."""
+    return np.tile(doc, (7, 5))[:3300, :2550]
 
 
-def check_k4(sw, search, pnm, dev) -> int:
-    """K4 == its plain version on doc512's banded maps."""
-    worst = 0
-    for W, R in ((40, 64), (64, 128)):
-        d, oy, ox = banded_maps(search, pnm, W, R, dev)
-        kw = dict(W=W, R=R, T_thresh=1, cols=512, invert=True)
-        nx = -(-512 // W)
-        got = sw._launch(d, oy, ox, nx, **kw)
-        want = sw.select_windows_plain(d, oy, ox, nx, **kw)
+def check_k4(sw, fs, pnm, dev) -> tuple[int, int]:
+    """K4's two kernels == their plain versions on the same CUDA tensors:
+    the plane kernel == ``_field_plane``, the search == the banded maps and
+    the selection over them (W = 64 takes its own instance, the rest the
+    run-time-W one).  Returns the worst error of each."""
+    fx = lambda n: pnm.read_pbm(os.path.join(FIXTURES, n))
+    doc, rag = fx("doc512.pbm"), fx("ragged75x101.pbm")
+    rs = np.random.RandomState(1)
+    roll = lambda n: np.stack([np.roll(doc, (rs.randint(512), rs.randint(512)),
+                                       axis=(0, 1)) for _ in range(n)])
+    partial = np.random.RandomState(4).rand(1, 300, 200) < 0.3
+    strip = np.random.RandomState(9).rand(1, 16, 105_000) < 0.2
+    strip[:, :, 52_500:] = strip[:, :, :52_500]
+    # name, pages, W, R
+    cases = [("doc512", doc[None], 40, 64), ("doc512", doc[None], 64, 128),
+             ("ragged75x101", rag[None], 33, 40),
+             ("ragged75x101", rag[None], 48, 56),
+             ("random300x200 (partial bottom and right tiles)", partial, 64,
+              128),
+             ("doc512 x4 batch", roll(4), 64, 128),
+             ("strip 16x105000 (outside K1's band budget)", strip, 8, 8)]
+    worst = worst_plane = 0
+    for name, pages, W, R in cases:
+        B, rows, cols = pages.shape
+        ny, nx = -(-rows // W), -(-cols // W)
+        if W <= 32 and fs.fused_supported(ny, nx, W, R):
+            raise AssertionError(f"{name}: K1 takes this shape")
+        img = grid_of(pages, W, dev)
+        He = fs.plane_height(ny * W, W, R)
+        E = sw._launch_plane(img, W, He)
+        plain_E = fs._field_plane(img, W, He, nx * W)
+        kw = dict(W=W, R=R, T_thresh=1, cols=cols, invert=True)
+        got = sw._launch(E, ny, nx, **kw)
+        want = sw.select_windows_plain(plain_E, ny, nx, **kw)
         torch.cuda.synchronize()
+        err_p = int((E - plain_E).abs().max()) if not torch.equal(
+            E, plain_E) else 0
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        worst = max(worst, err)
-        log(f"K4 doc512 banded maps W={W} R={R} {tuple(d.shape)}: "
-            f"max_abs_err={err} found={int(got[..., 3].sum())}")
-        if err != 0:
-            raise AssertionError(f"K4 disagrees with its plain version at "
-                                 f"W={W}")
-    return worst
+        worst, worst_plane = max(worst, err), max(worst_plane, err_p)
+        log(f"K4 {name}: W={W} R={R} B={B} T={ny * nx} plane "
+            f"max_abs_err={err_p}, search max_abs_err={err} "
+            f"found={int(got[..., 3].sum())}")
+        if err != 0 or err_p != 0:
+            raise AssertionError(f"K4 disagrees with its plain version on "
+                                 f"{name} at W={W}")
+    return worst, worst_plane
 
 
 def main_path(compress, archive, codec, native, pnm):
@@ -360,20 +391,48 @@ def strict_path(compress, codec, native, pnm):
             f"({t * 1e3:.1f} ms wall, first call)")
 
 
+BANDED_BYTES = {(64, 128): 22375, (40, 64): 22590}
+
+
 def banded_path(compress, codec, native, pnm):
-    """The banded fallback as a user calls it: encode at W = 64 and 40."""
+    """The banded route as a user calls it: encode doc512 at W = 64 and 40,
+    and a 3300 x 2550 letter page at W = 64, R = 128."""
     doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
-    for W, R in ((64, 128), (40, 64)):
+    for name, img, W, R in (("doc512", doc, 64, 128), ("doc512", doc, 40, 64),
+                            ("letter 3300x2550", letter_page(doc), 64, 128)):
         p = codec.CodecParams(codec=8, W=W, R=R, strict=False)
         t0 = time.perf_counter()
-        blob = compress.encode(doc, p, device="cuda")
+        blob = compress.encode(img, p, device="cuda")
         t = time.perf_counter() - t0
-        if blob != host_stream(codec, native, doc, p):
-            raise AssertionError(f"doc512 W={W} != native host stream")
-        if not np.array_equal(codec.decode(blob), doc):
-            raise AssertionError(f"doc512 W={W} does not round-trip")
-        log(f"banded: doc512 W={W} R={R} -> {len(blob)} B, == host encoder, "
+        if blob != host_stream(codec, native, img, p):
+            raise AssertionError(f"{name} W={W} != native host stream")
+        if not np.array_equal(codec.decode(blob), img):
+            raise AssertionError(f"{name} W={W} does not round-trip")
+        if name == "doc512" and len(blob) != BANDED_BYTES[(W, R)]:
+            raise AssertionError(f"doc512 W={W} is {len(blob)} B, not "
+                                 f"{BANDED_BYTES[(W, R)]}")
+        log(f"banded: {name} W={W} R={R} -> {len(blob)} B, == host encoder, "
             f"round-trips ({t * 1e3:.1f} ms wall, first call)")
+
+
+def no_maps_on_card(search, fn):
+    """Run fn() with a spy on ``search.window_distance_maps_banded`` (K4's
+    plain maps); fail if it was called on a CUDA tensor."""
+    orig, devices = search.window_distance_maps_banded, []
+
+    def spy(E, *a, **k):
+        devices.append(E.device.type)
+        return orig(E, *a, **k)
+    search.window_distance_maps_banded = spy
+    try:
+        fn()
+    finally:
+        search.window_distance_maps_banded = orig
+    log(f"banded path: window_distance_maps_banded called {len(devices)} "
+        f"times, on {sorted(set(devices)) or 'no device'}")
+    if "cuda" in devices:
+        raise AssertionError("the banded path built distance maps on the "
+                             "card")
 
 
 # (N, M, K) of K5's checks: tests/test_pallas.py's shapes, ragged edges,
@@ -856,10 +915,11 @@ def kernel_times(compress, fs, dc, roofline, img, out, serial, dev, gpu):
                 k2=(k2, k2p, k2_bound, None))
 
 
-def new_path_times(compress, codec, st, sw, search, pnm, roofline, dev, gpu):
-    """K3 (whole, and the device time of each of its kernels) and K4 beside
-    their plain versions, and the strict and W = 64 encodes end to end, on
-    doc512."""
+def new_path_times(compress, codec, st, sw, fs, bitpack, pnm, roofline, dev,
+                   gpu):
+    """K3 (whole, and the device time of each of its kernels) beside its
+    plain version and the strict encode end to end, on doc512; then K4's
+    (``banded_times``)."""
     doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
     g = grid_of(doc[None], 16, dev)[0]
     enb = torch.from_numpy(compress.enb_lut(256)).to(dev)
@@ -870,16 +930,9 @@ def new_path_times(compress, codec, st, sw, search, pnm, roofline, dev, gpu):
         ("strict_plane_kernel", "strict_grid2_kernel", "strict_serial_kernel"),
         10)
     k3p = cuda_ms(lambda: st.strict_analyze_plain(g, enb, **kw), 2)
-    t_maps = cuda_ms(lambda: banded_maps(search, pnm, 64, 128, dev), 3)
-    d, oy, ox = banded_maps(search, pnm, 64, 128, dev)
-    kw4 = dict(W=64, R=128, T_thresh=1, cols=512, invert=True)
-    k4 = cuda_ms(lambda: sw._launch(d, oy, ox, 8, **kw4), 20)
-    k4p = cuda_ms(lambda: sw.select_windows_plain(d, oy, ox, 8, **kw4), 3)
     ps = codec.CodecParams(codec=8, W=16, R=128, strict=True)
     e_strict = host_ms(lambda: compress.encode_strict(doc, ps, device="cuda"),
                        5)
-    p64 = codec.CodecParams(codec=8, W=64, R=128, strict=False)
-    e64 = host_ms(lambda: compress.encode(doc, p64, device="cuda"), 5)
     b3 = roofline.bound_ms(
         popcounts=roofline.search_popcounts(512, 512, 16, 128),
         nbytes=roofline.k3_bytes(512, 512, 16))
@@ -890,12 +943,88 @@ def new_path_times(compress, codec, st, sw, search, pnm, roofline, dev, gpu):
         f"plane {nd(dev_plane)}, grid-2 pass {nd(dev_g2)}, serial pass "
         f"{nd(dev_serial)}; bound {b3[0]:.4f} ms; chain floor (derived: grid "
         f"1's popcounts on one SM) {floor:.4f} ms [{gpu}]")
-    log(f"K4 kernel {k4:.4f} ms vs plain {k4p:.3f} ms; banded maps (PyTorch) "
-        f"{t_maps:.3f} ms (doc512, W=64 R=128) [{gpu}]")
-    log(f"end to end: encode_strict doc512 W=16 R=128 {e_strict:.3f} ms; "
-        f"encode doc512 W=64 R=128 {e64:.3f} ms [{gpu}]")
-    k4_bound = roofline.bound_ms(nbytes=roofline.k4_bytes(*d.shape))
-    return k3, k3p, b3, k4, k4p, k4_bound
+    log(f"end to end: encode_strict doc512 W=16 R=128 {e_strict:.3f} ms "
+        f"[{gpu}]")
+    k4, plane = banded_times(compress, codec, sw, fs, bitpack, pnm, roofline,
+                             dev, gpu)
+    return k3, k3p, b3, k4, plane
+
+
+def banded_times(compress, codec, sw, fs, bitpack, pnm, roofline, dev, gpu):
+    """K4's plane and search kernels beside their plain versions (the plain
+    search is the map route: the banded maps and the selection over them)
+    on doc512 at W = 64, R = 128, by CUDA events and by torch.profiler, the
+    search also on the letter page; then the W = 64 encode split into
+    stages.  Returns the kernels-line figures of the search and the plane."""
+    doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
+    W, R, rows, cols = 64, 128, 512, 512
+    ny = nx = 8
+    p = codec.CodecParams(codec=8, W=W, R=R, strict=False)
+    kw = dict(W=W, R=R, T_thresh=p.resolved_T(), cols=cols, invert=True)
+    He = fs.plane_height(ny * W, W, R)
+    img = grid_of(doc[None], W, dev)
+    E = sw._launch_plane(img, W, He)
+    k4 = cuda_ms(lambda: sw._launch(E, ny, nx, **kw), 20)
+    k4p = cuda_ms(lambda: sw.select_windows_plain(E, ny, nx, **kw), 3)
+    pl = cuda_ms(lambda: sw._launch_plane(img, W, He), 20)
+    plp = cuda_ms(lambda: fs._field_plane(img, W, He, nx * W), 20)
+    dpl, dse, dde = device_times(
+        lambda: sw.select_windows(img, ny, nx, **kw),
+        ("banded_plane_kernel", "banded_search_kernel",
+         "banded_decode_kernel"), 20)
+    k4_bound = lambda *shape: roofline.bound_ms(**dict(zip(
+        ("popcounts", "nbytes"), roofline.k4_work(*shape))))
+    b4 = k4_bound(rows, cols, W, R)
+    bpl = roofline.bound_ms(
+        nbytes=roofline.plane_bytes(1, rows, cols, He, word=8))
+    pct = "" if dse is None else f" ({100 * b4[0] / dse:.1f} % of bound)"
+    log(f"K4 search kernel {k4:.4f} ms vs the plain map route (banded maps "
+        f"+ selection) {k4p:.3f} ms; plane kernel {pl:.4f} ms vs plain "
+        f"{plp:.4f} ms (doc512, W=64 R=128, CUDA events) [{gpu}]")
+    log(f"  K4 device time by kernel (torch.profiler, mean of 20 calls): "
+        f"plane {nd(dpl)} (bound {bpl[0]:.6f} ms, {bpl[1]}), search "
+        f"{nd(dse)}, decode {nd(dde)}; search bound {b4[0]:.4f} ms "
+        f"({b4[1]}){pct} [{gpu}]")
+    letter = letter_page(doc)
+    lrows, lcols = letter.shape
+    lny, lnx = -(-lrows // W), -(-lcols // W)
+    limg = grid_of(letter[None], W, dev)
+    lkw = dict(kw, cols=lcols)
+    lse, = device_times(lambda: sw.select_windows(limg, lny, lnx, **lkw),
+                        ("banded_search_kernel",), 10)
+    lb = k4_bound(lrows, lcols, W, R)
+    log(f"  K4 search on the letter page {lrows}x{lcols} (T={lny * lnx}): "
+        f"{nd(lse)} on the device, bound {lb[0]:.4f} ms ({lb[1]}) [{gpu}]")
+
+    st = {}
+    reps = 5
+    st["upload"] = host_ms(lambda: compress._upload(doc[None], W, dev), reps)
+    packed = compress._upload(doc[None], W, dev)
+    st["unpack"] = cuda_ms(lambda: bitpack.unpack(packed, nx * W), reps)
+    img = bitpack.unpack(packed, nx * W)
+    st["plane"] = cuda_ms(lambda: sw._launch_plane(img, W, He), reps)
+    E = sw._launch_plane(img, W, He)
+    st["K4"] = cuda_ms(lambda: sw._launch(E, ny, nx, **kw), reps)
+    sel, oy, _ = sw.select_windows(img, ny, nx, **kw)
+    st["dense finish"] = cuda_ms(lambda: compress.finish_analysis(
+        img, sel, oy, None, W=W, nx=nx), reps)
+    out = compress.finish_analysis(img, sel, oy, None, W=W, nx=nx)
+    st["K2 (+records, M=4096)"] = cuda_ms(
+        lambda: compress.decide_records(out, W * W), reps)
+    block = compress.decide_records(out, W * W)
+    st["fetch"] = host_ms(lambda: block.cpu().numpy(), reps)
+    bnp = block.cpu().numpy()
+    st["native pack"] = host_ms(
+        lambda: compress.pack_pages(bnp, doc[None], p), reps)
+    st["end to end (encode)"] = host_ms(
+        lambda: compress.encode(doc, p, device="cuda"), reps)
+    log(f"stages doc512 W=64 R=128 [{gpu}]: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in st.items()))
+    e_letter = host_ms(lambda: compress.encode(letter, p, device="cuda"), 2)
+    log(f"end to end: encode letter {lrows}x{lcols} W=64 R=128 "
+        f"{e_letter:.3f} ms "
+        f"(host clock, mean of 2) [{gpu}]")
+    return (k4, k4p, b4, None), (pl, plp, bpl, None)
 
 
 def main() -> int:
@@ -939,7 +1068,7 @@ def main() -> int:
     err1, err1p = check_k1(fs, pnm, dev)
     err2 = check_k2(dc, compress, pnm, dev)
     err3 = check_k3(st, compress, pnm, dev)
-    err4 = check_k4(sw, search, pnm, dev)
+    err4, err4p = check_k4(sw, fs, pnm, dev)
     err5 = check_k5(pd, bsvd, dev)
     err6 = check_k6(pd, bsvd, dev)
 
@@ -950,17 +1079,17 @@ def main() -> int:
     strict_c = drive("strict", lambda: strict_path(compress, codec, native,
                                                    pnm),
                      _cuda, ("strict_analyze",))
-    banded = drive("banded", lambda: banded_path(compress, codec, native,
-                                                 pnm),
-                   _cuda, ("select_windows", "decide_modes"))
+    banded = drive("banded", lambda: no_maps_on_card(
+        search, lambda: banded_path(compress, codec, native, pnm)),
+                   _cuda, ("banded_plane", "select_windows", "decide_modes"))
     bsvd_c = drive("bsvd", lambda: bsvd_path(codec, bsvd, cli, pnm, dev),
                    _cuda, ("packed_dist_matrix", "packed_row_weight"))
 
     img, _, out = stage_times(compress, fs, bitpack, codec, pnm, dev, gpu)
     kt = kernel_times(compress, fs, dc, roofline, img, out, serial, dev,
                       gpu)
-    k3, k3p, b3, k4, k4p, b4 = new_path_times(
-        compress, codec, st, sw, search, pnm, roofline, dev, gpu)
+    k3, k3p, b3, k4t, plane4 = new_path_times(
+        compress, codec, st, sw, fs, bitpack, pnm, roofline, dev, gpu)
     k5, k5p, k6, k6p, lib5, lib6 = bsvd_times(codec, bsvd, pd, pnm, dev, gpu)
     pops5, bytes5 = roofline.k5_work(1024, 64, 8)
     pops6, bytes6 = roofline.k6_work(1024, 8)
@@ -984,8 +1113,10 @@ def main() -> int:
               causal["decide_modes"], err2, *kt["k2"]),
         entry("strict_analyze", "strict_analyze.cu", "pallas_strict.py:61",
               strict_c["strict_analyze"], err3, k3, k3p, b3, None),
+        entry("banded_plane", "select_windows.cu", "search.py:203",
+              banded["banded_plane"], err4p, *plane4),
         entry("select_windows", "select_windows.cu", "pallas_kernels.py:407",
-              banded["select_windows"], err4, k4, k4p, b4, None),
+              banded["select_windows"], err4, *k4t),
         entry("packed_dist_matrix", "packed_dist.cu", "pallas_kernels.py:45",
               bsvd_c["packed_dist_matrix"], err5, k5, k5p, b5, lib5),
         entry("packed_row_weight", "packed_dist.cu", "pallas_kernels.py:728",

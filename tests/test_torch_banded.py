@@ -1,8 +1,9 @@
 """The banded fallback search in the port on the CPU: the distance maps
-against the JAX package's ``search.window_distance_maps_banded`` on every
-in-window cell, the plain K4 against the JAX package's ``select_windows``
-Pallas kernel (interpret mode) on the same maps, and ``compress.encode`` at
-W in {40, 64} against the JAX device path and the host encoder."""
+of K4's plain version (from the field plane) against the JAX package's
+``search.window_distance_maps_banded`` on every in-window cell, its
+selection over maps against the JAX package's ``select_windows`` Pallas
+kernel (interpret mode) on the same maps, and ``compress.encode`` at W in
+{40, 64} against the JAX device path and the host encoder."""
 
 import jax
 import jax.numpy as jnp
@@ -36,8 +37,9 @@ def _maps(rows, cols, W, R, density, seed):
     i0, j0, _, _ = jsearch.tile_origins(rows, cols, W)
     jd, joy, jox = jax.device_get(jsearch.window_distance_maps_banded(
         jnp.asarray(grid), i0, j0, W, R, ny, nx))
-    d, oy, ox = search.window_distance_maps_banded(
-        torch.from_numpy(grid[None] != 0), W, R)
+    E = fs._field_plane(torch.from_numpy(grid[None] != 0), W,
+                        fs.plane_height(ny * W, W, R), nx * W)
+    d, oy, ox = search.window_distance_maps_banded(E, ny, nx, W, R)
     return grid, (np.asarray(i0), np.asarray(j0)), (jd, joy, jox), (d, oy, ox)
 
 
@@ -79,8 +81,8 @@ def test_plain_k4_matches_jax_select_windows(case):
         T_thresh=T_thresh, rows=rows, cols=cols, invert=True,
         interpret=True))
     nx = grid.shape[1] // W
-    sel = sw.select_windows(d, oy, ox, nx, W=W, R=R, T_thresh=T_thresh,
-                            cols=cols, invert=True)
+    sel = sw.select_maps(d, oy, ox, nx, W=W, R=R, T_thresh=T_thresh,
+                         cols=cols, invert=True)
     assert sel.dtype == torch.int32 and sel.shape == (1, len(i0), 8)
     # JAX returns x relative to the map origin ox; the port, as K1, absolute
     want["dx"] = np.asarray(want["dx"]) + jox

@@ -190,23 +190,34 @@ def test_k3_kernel_matches_plain(dev, name, W, R):
     assert torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("rows,cols,W,R", [(96, 128, 40, 64),
-                                           (192, 256, 64, 128),
-                                           (64, 200, 33, 40)])
-def test_k4_kernel_matches_plain(dev, rows, cols, W, R):
-    pages = np.random.RandomState(W).rand(2, rows, cols) < 0.3
-    grid = np.zeros((2, -(-rows // W) * W, -(-cols // W) * W), dtype=bool)
+@pytest.mark.parametrize("rows,cols,W,R,B", [(96, 128, 40, 64, 2),
+                                             (192, 256, 64, 128, 2),
+                                             (64, 200, 33, 40, 2),
+                                             (100, 150, 48, 56, 1),
+                                             (130, 150, 64, 128, 4),
+                                             (16, 4000, 8, 8, 1)])
+def test_k4_kernel_matches_plain(dev, rows, cols, W, R, B):
+    """The plane kernel == ``_field_plane`` and the search == its plain
+    version (the banded maps and the selection over them): W = 64 takes its
+    own instance, the rest the run-time-W one; partial bottom and right
+    tiles, a band taller than the page, a batch and a W = 8 strip."""
+    pages = np.random.RandomState(W + B).rand(B, rows, cols) < 0.3
+    ny, nx = -(-rows // W), -(-cols // W)
+    grid = np.zeros((B, ny * W, nx * W), dtype=bool)
     grid[:, :rows, :cols] = pages
-    d, oy, ox = search.window_distance_maps_banded(
-        torch.from_numpy(grid).to(dev), W, R)
+    img = torch.from_numpy(grid).to(dev)
     kw = dict(W=W, R=R, T_thresh=1, cols=cols, invert=True)
-    nx = grid.shape[2] // W
-    before = _cuda.launches["select_windows"]
-    got = sw.select_windows(d, oy, ox, nx, **kw)
-    assert _cuda.launches["select_windows"] == before + 1
-    want = sw.select_windows_plain(d, oy, ox, nx, **kw)
+    before = dict(_cuda.launches)
+    got, oy, E = sw.select_windows(img, ny, nx, **kw)
+    for name in ("banded_plane", "select_windows"):
+        assert _cuda.launches[name] == before.get(name, 0) + 1
+    plain_E = fs._field_plane(img, W, E.shape[1], nx * W)
+    want = sw.select_windows_plain(plain_E, ny, nx, **kw)
     torch.cuda.synchronize()
+    assert torch.equal(E, plain_E)
     assert torch.equal(got, want)
+    assert torch.equal(oy, search.banded_origins(ny * W, nx * W, W, R,
+                                                 dev)[0])
     assert int(got[..., 3].sum()) > 0
 
 
@@ -231,7 +242,7 @@ def test_banded_encode_on_card_matches_host_encoder(dev, W, R):
     before = dict(_cuda.launches)
     blob = compress.encode(img, p, device="cuda")
     assert blob == _host(img, p)
-    for k in ("select_windows", "decide_modes"):
+    for k in ("banded_plane", "select_windows", "decide_modes"):
         assert _cuda.launches[k] == before.get(k, 0) + 1
     np.testing.assert_array_equal(codec.decode(blob), img)
 

@@ -91,7 +91,11 @@ def test_bytes_only_kernels():
     ms, by = roofline.bound_ms(nbytes=roofline.k2_bytes(1, 1024, 256))
     assert by == "bytes" and ms == pytest.approx(
         4 * (1024 * 9 + 257) / 3.35e12 * 1e3)
-    assert roofline.k4_bytes(1, 64, 3, 5) == 4 * (64 * 15 + 128) + 4 * 512
+    # K4: the uint64 plane of max(ny*W, R+W) rows in, int32 [B, T, 8] out
+    assert roofline.k4_work(64, 80, 16, 24, 2)[1] == \
+        8 * 2 * 64 * 80 + 4 * 2 * 20 * 8
+    # K4's doc512 plane, 8-byte fields: the same bytes as k4_work's input
+    assert roofline.plane_bytes(1, 512, 512, 512, word=8) == 512 * 512 * 9
     assert roofline.k1_bytes(2, 640, 512, 1024) == 4 * 2 * (640 * 512
                                                             + 1024 * 8)
     # doc512 at W=16, R=128: 0/1 bytes in, a 512-row int32 plane out
@@ -142,3 +146,22 @@ def test_plan_ring_and_global_band():
     # the band fits up to R = 682 at W = 32 on a 1024-wide page
     assert strict._plan(32, 682, 1024, 1024)["ring"]
     assert not strict._plan(32, 683, 1024, 1024)["ring"]
+
+
+@pytest.mark.parametrize("rows,cols,W,R,B,pops,by", [
+    (512, 512, 64, 128, 1, 106502144, "operations"),
+    (512, 512, 40, 64, 1, 27296400, "operations"),
+    (512, 512, 64, 128, 4, 4 * 106502144, "operations"),
+    (75, 101, 33, 40, 1, None, None),
+    (16, 105000, 8, 8, 1, None, None)])
+def test_k4_work(rows, cols, W, R, B, pops, by):
+    """K4 counts the same popcounts as the windows K1 would score, whatever
+    its 64-bit fields; its plane has the zero rows of plane_height."""
+    got, nbytes = roofline.k4_work(rows, cols, W, R, B)
+    assert got == B * roofline.search_popcounts(rows, cols, W, R)
+    if pops is not None:
+        assert got == pops
+        assert roofline.bound_ms(popcounts=got, nbytes=nbytes)[1] == by
+    ny, nx = -(-rows // W), -(-cols // W)
+    He = fused_search.plane_height(ny * W, W, R)
+    assert nbytes == 8 * B * He * nx * W + 4 * B * ny * nx * 8
