@@ -1,4 +1,7 @@
-// Kernels K5 and K6: Hamming distances and weights of packed bit rows.
+// Kernels K5 and K6: Hamming distances and weights of packed bit rows, and
+// the BSVD pursuit kernel that fuses them (packed_pursuit.cuh, note at its
+// top; entry point bic_packed_pursuit below).  The pursuit no longer runs K5
+// or K6; they stay as the ops `distances_to_atoms` and the row weights.
 //
 // Replaces: binary_image_compression_tpu/ops/pallas_kernels.py::
 //           packed_dist_matrix (kernel body `_dist_kernel`) and
@@ -27,6 +30,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "packed_pursuit.cuh"
 
 namespace {
 
@@ -117,4 +122,17 @@ extern "C" int bic_packed_row_weight(const void* a, void* out, int N, int Wd,
                          (cudaStream_t)stream>>>((const uint32_t*)a,
                                                  (int32_t*)out, N, Wd);
   return (int)cudaGetLastError();
+}
+
+// The BSVD pursuit, one warp per row: Ep int32 [N, nw] and A int8 [N, K]
+// updated in place, Dp int32 [K, nw], passes int32 [N] out, ctr uint64 [2]
+// (zeroed here; ctr[1] counts the rows that changed).  stage: 1 stages D in
+// shared memory, 0 reads it from device memory, -1 chooses by its size.
+// Launches on `stream`, returns a CUDA error code.
+extern "C" int bic_packed_pursuit(void* Ep, const void* Dp, void* A,
+                                  void* passes, void* ctr, int N, int K,
+                                  int nw, int max_flips, int stage,
+                                  void* stream) {
+  return bic::packed_pursuit<32>(Ep, Dp, A, passes, ctr, N, K, nw, max_flips,
+                                 stage, stream);
 }

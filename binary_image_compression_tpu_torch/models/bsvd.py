@@ -6,12 +6,13 @@ D (K x M atoms) over GF(2), E = X ^ A*D, minimizing |E| or an MDL
 codelength.
 
 * The pursuit (``update_coefficients``) flips, per sweep, each sample's
-  single best coefficient while that lowers |E_i|.  Its candidate distances
-  d[i, k] = |E_i ^ D_k| come from kernel K5 on the packed rows, which stay
-  packed across sweeps, with K6 for the first |E_i|
-  (``distances="packed"``, the port's default, at any row width), or from
-  one float32 product (``"mxu"``).  Both give the same integers, so the
-  same flips.
+  single best coefficient while that lowers |E_i|.  On the packed route
+  (``distances="packed"``, the port's default, at any row width) each
+  row walks its own loop of distance passes d[i, k] = |E_i ^ D_k| and
+  flips on the packed rows, in one launch of the pursuit kernel
+  (``ops/packed_dist.packed_pursuit``, K5 with K6 fused in).  The
+  ``"mxu"`` route sweeps all rows at once with one float32 product per
+  sweep.  Both give the same integers, so the same flips.
 * The dictionary updates are majority votes, atom after atom, each fixing
   up E before the next: a serial chain by the reference's semantics
   (bsvd.cpp:463-735), a Python loop over tensors here.
@@ -27,7 +28,8 @@ over 0/1 operands with sums below 2**24, so it is an exact integer, with
 TF32 on or off; ``update_dictionary_*``, the mxu route, ``residual``
 and the initializers depend on that.  No fp16 or bf16 anywhere, and no int8
 ``torch.matmul`` (CUDA has none).  JAX's ``lax.while_loop`` conditions
-become one ``.item()`` per sweep.
+become one ``.item()`` per sweep on the mxu route; the packed route's
+pursuit has no host sync.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ def _f32(x):
 
 
 def _pack(rows):
-    """0/1 [N, M] -> int32 [N, nwords(M)] words for K5/K6."""
+    """0/1 [N, M] -> int32 [N, nwords(M)] words for K5 and the pursuit."""
     return bitpack.to_i32(bitpack.pack(rows)).contiguous()
 
 
@@ -79,48 +81,42 @@ def update_coefficients(E, D, A, max_flips: int | None = None,
     Per sweep every still-improving sample flips the one coefficient whose
     atom most lowers |E_i| (the first minimum, as ``jnp.argmin``); sweeps
     repeat until no sample improves, at most `max_flips` (default K) times.
-    Returns (E', A', changed_count) with changed_count an int64 tensor.
+    Returns (E', A', changed_count) with changed_count an int64 tensor; the
+    inputs are left alone.
 
-    |E_i| is carried: a flip makes it the chosen distance.  On the packed
-    route E and D are packed once; each sweep runs K5 for d and XORs the
-    chosen packed atom into the packed rows that improve, K6 gives the first
-    |E_i|, and E is unpacked at the end.  d and |E_i| are int32 there and
-    compared as integers."""
+    A sample's state changes only when it improves, so each row's outcome is
+    its own loop.  The packed route packs E and D once and runs it in one
+    ``packed_dist.packed_pursuit`` call on a copy of A (one kernel launch on
+    the card, no host sync), then unpacks E.  The mxu route sweeps: one
+    float32 product per sweep for d, |E_i| carried, one host sync per
+    sweep."""
     _check_distances(distances)
     N, M = E.shape
     K = D.shape[0]
     if max_flips is None:
         max_flips = K
-    packed = distances == "packed"
-    if packed:
-        Ep, Dp = _pack(E), _pack(D)
-        w = packed_dist.packed_row_weight(Ep)
-    else:
-        w = E.sum(dim=1, dtype=_F32)
+    if distances == "packed":
+        Ep = _pack(E)
+        A = A.clone(memory_format=torch.contiguous_format)
+        changed, _ = packed_dist.packed_pursuit(Ep, _pack(D), A, max_flips)
+        return bitpack.unpack(Ep, M).to(E.dtype), A, changed
+    w = E.sum(dim=1, dtype=_F32)
     ks = torch.arange(K, device=E.device)
     active = torch.ones((N,), dtype=torch.bool, device=E.device)
     changed = torch.zeros((N,), dtype=torch.bool, device=E.device)
     it = 0
     while it < max_flips and bool(active.any()):
-        if packed:
-            d = packed_dist.packed_dist_matrix(Ep, Dp)
-        else:
-            d = distances_to_atoms(E, D, "mxu")
+        d = distances_to_atoms(E, D, "mxu")
         bestk = torch.argmin(d, dim=1)
         bestd = d.gather(1, bestk[:, None])[:, 0]
         improve = (bestd < w) & active
         sel = (bestk[:, None] == ks[None, :]).to(A.dtype)
         A = torch.where(improve[:, None], A ^ sel, A)
-        if packed:
-            Ep = torch.where(improve[:, None], Ep ^ Dp[bestk], Ep)
-        else:
-            E = torch.where(improve[:, None], E ^ D[bestk], E)
+        E = torch.where(improve[:, None], E ^ D[bestk], E)
         w = torch.where(improve, bestd, w)
         changed |= improve
         active = improve
         it += 1
-    if packed:
-        E = bitpack.unpack(Ep, M).to(E.dtype)
     return E, A, changed.sum()
 
 

@@ -125,6 +125,8 @@ def _declare(lib) -> None:
     lib.bic_packed_dist_matrix.argtypes = [p] * 3 + [i] * 3 + [p]
     lib.bic_packed_row_weight.restype = i
     lib.bic_packed_row_weight.argtypes = [p] * 2 + [i] * 2 + [p]
+    lib.bic_packed_pursuit.restype = i
+    lib.bic_packed_pursuit.argtypes = [p] * 5 + [i] * 5 + [p]
 
 
 def resolve_device(device):

@@ -1,4 +1,5 @@
-"""Kernels K5 and K6: Hamming distances and weights of packed bit rows.
+"""Kernels K5 and K6 (Hamming distances and weights of packed bit rows) and
+the BSVD pursuit kernel that fuses them.
 
 Counterparts of ``packed_dist_matrix`` (:45, kernel body ``_dist_kernel``
 :21) and ``packed_row_weight`` (:728, ``_weight_kernel`` :722) in
@@ -6,11 +7,15 @@ Counterparts of ``packed_dist_matrix`` (:45, kernel body ``_dist_kernel``
 tensors of 32-bit words holding the uint32 bit patterns of
 ``bitpack.pack`` (``bitpack.to_i32``).
 
-The BSVD pursuit (``models/bsvd.update_coefficients``, packed route) runs
-them on the packed residual: K6 once per call for every |E_i|, K5 once per
-sweep for every |E_i ^ D_k|.
+``packed_pursuit`` is the BSVD pursuit (``models/bsvd.update_coefficients``,
+packed route) in one launch: each row walks its own loop of distance
+passes and flips to its end, with its first |E_i| (K6's work) fused in
+(``csrc/packed_pursuit.cuh``, note at its top).  Its plain version is the
+sweep loop the JAX package runs, over the plain K5 and K6.  K5 stays the op
+of ``bsvd.distances_to_atoms`` and K6 the row weights; neither runs in the
+pursuit.
 
-``packed_dist_matrix`` and ``packed_row_weight`` launch
+``packed_dist_matrix``, ``packed_row_weight`` and ``packed_pursuit`` launch
 ``csrc/packed_dist.cu`` for CUDA tensors and run the ``*_plain`` versions
 for CPU tensors.
 """
@@ -79,6 +84,69 @@ def packed_row_weight(a):
     raise RuntimeError(f"K6 has no kernel for device {a.device}")
 
 
+def _check_pursuit(Ep, Dp, A):
+    _check(Ep, Dp)
+    if A.dtype != torch.int8 or A.shape != (Ep.shape[0], Dp.shape[0]):
+        raise ValueError("pursuit: A must be int8 [N, K] for Ep [N, nw] and "
+                         "Dp [K, nw]")
+    if Dp.shape[0] < 1:
+        raise ValueError("pursuit: Dp needs at least one atom")
+    if A.device != Ep.device:
+        raise ValueError("pursuit: A must be on Ep's device")
+    if not (Ep.is_contiguous() and A.is_contiguous()):
+        raise ValueError("pursuit: Ep and A are updated in place and must be "
+                         "contiguous")
+
+
+def sweeps(Ep, Dp, A, max_flips: int, dist, weight):
+    """The JAX package's sweep loop on packed rows: K6 (`weight`) for the
+    first |E_i|, then per sweep K5 (`dist`) for d[i, k] = |E_i ^ D_k|, the
+    first minimum, and a flip of it in every still-improving row, until no
+    row improves or `max_flips` sweeps ran.  |E_i| is carried: a flip makes
+    it the chosen distance.  Updates Ep and A in place; returns (changed
+    int64, passes int32 [N]), passes[i] counting the sweeps row i was
+    active in.  One host sync per sweep."""
+    N, K = A.shape
+    w = weight(Ep)
+    ks = torch.arange(K, device=Ep.device)
+    active = torch.ones((N,), dtype=torch.bool, device=Ep.device)
+    changed = torch.zeros((N,), dtype=torch.bool, device=Ep.device)
+    passes = torch.zeros((N,), dtype=torch.int32, device=Ep.device)
+    it = 0
+    while it < max_flips and bool(active.any()):
+        passes += active
+        d = dist(Ep, Dp)
+        bestk = torch.argmin(d, dim=1)
+        bestd = d.gather(1, bestk[:, None])[:, 0]
+        improve = (bestd < w) & active
+        A ^= (bestk[:, None] == ks[None, :]).to(A.dtype) * improve[:, None]
+        Ep ^= Dp[bestk] * improve[:, None]
+        w = torch.where(improve, bestd, w)
+        changed |= improve
+        active = improve
+        it += 1
+    return changed.sum(), passes
+
+
+def packed_pursuit_plain(Ep, Dp, A, max_flips: int):
+    """Plain PyTorch pursuit: ``sweeps`` over the plain K5 and K6."""
+    return sweeps(Ep, Dp, A, max_flips, packed_dist_matrix_plain,
+                  packed_row_weight_plain)
+
+
+def packed_pursuit(Ep, Dp, A, max_flips: int):
+    """The BSVD pursuit on packed rows: Ep int32 [N, nw] and A int8 [N, K]
+    updated in place against Dp int32 [K, nw], at most `max_flips` flips a
+    row.  Returns (changed, passes): the rows that changed (int64, 0-dim)
+    and each row's distance passes (int32 [N]), the same on both routes."""
+    _check_pursuit(Ep, Dp, A)
+    if Ep.is_cuda:
+        return _launch_pursuit(Ep, Dp, A, max_flips)
+    if Ep.device.type == "cpu":
+        return packed_pursuit_plain(Ep, Dp, A, max_flips)
+    raise RuntimeError(f"the pursuit has no kernel for device {Ep.device}")
+
+
 def _launch_dist(a, b):
     """Launch K5: one block per 32 x 32 output tile."""
     a, b = a.contiguous(), b.contiguous()
@@ -109,3 +177,22 @@ def _launch_weight(a):
         _cuda.stream(a.device)), "bic_packed_row_weight")
     _cuda.launches["packed_row_weight"] += 1
     return out
+
+
+def _launch_pursuit(Ep, Dp, A, max_flips: int, stage: int = -1):
+    """Launch the pursuit kernel: one warp per row, persistent.  `stage`:
+    1 stages D in shared memory, 0 reads it from device memory, -1 chooses
+    by its size (the kernel's checks force each)."""
+    N, nw = Ep.shape
+    Dp = Dp.contiguous()
+    passes = torch.empty((N,), dtype=torch.int32, device=Ep.device)
+    ctr = torch.empty((2,), dtype=torch.int64, device=Ep.device)
+    if N == 0:
+        return ctr[1].zero_(), passes
+    lib = _cuda.get_lib()
+    _cuda.check(lib.bic_packed_pursuit(
+        *(ctypes.c_void_p(t.data_ptr()) for t in (Ep, Dp, A, passes, ctr)),
+        N, Dp.shape[0], nw, max(0, min(int(max_flips), 2 ** 31 - 1)), stage,
+        _cuda.stream(Ep.device)), "bic_packed_pursuit")
+    _cuda.launches["packed_pursuit"] += 1
+    return ctr[1], passes

@@ -24,6 +24,9 @@ must stay in order: grid 1's popcounts on one SM.  K2 decides a page in
 rounds of up to 32 tiles, so ``k2_rounds_floor`` is the least number of
 rounds a page of T tiles takes; a round's time is latency, not work, and
 chip_smoke measures it on the card.
+
+The BSVD pursuit's work depends on the data: ``pursuit_work`` takes the
+distance passes the rows took (the kernel counts them per row).
 """
 
 from __future__ import annotations
@@ -134,3 +137,14 @@ def k6_work(N: int, nw: int) -> tuple[int, int]:
     """K6: (popcounts, bytes): one per word; u32 [N, nw] in, int32 [N]
     out."""
     return N * nw, 4 * (N * nw + N)
+
+
+def pursuit_work(passes: int, N: int, K: int, nw: int) -> tuple[int, int]:
+    """The BSVD pursuit kernel: (popcounts, bytes).  `passes` is the sum of
+    the rows' distance passes (what this run's data needed): K * nw
+    popcounts each, plus N * nw for the first |E_i|.  Bytes: the packed
+    rows [N, nw] in and out, D [K, nw] once, the passes [N] out, and A's
+    toggled bytes, read and written: at least passes - N of them, since a
+    row's passes are its flips plus at most one that fails."""
+    pops = passes * K * nw + N * nw
+    return pops, 4 * (2 * N * nw + K * nw + N) + 2 * max(passes - N, 0)

@@ -5,7 +5,9 @@
 Builds the native host library and the CUDA kernels from this checkout,
 holds each kernel (K1's field plane and search, K2 decision, K3 strict
 analysis, K4's 64-bit field plane and banded search, K5 packed distances,
-K6 packed row weights) against its plain PyTorch version on the card, then
+K6 packed row weights, and the BSVD pursuit kernel that fuses K5 and K6,
+on planted inputs up to a letter page's 33,120 patches) against its plain
+PyTorch version on the card, then
 drives the port's four paths, each with
 the launch counts reset just before it and read just after: the causal
 encode (one 512x512 page, then a 64-page corpus through the archive
@@ -14,14 +16,16 @@ page), the banded route (``encode`` of doc512 at W = 64 and W = 40 and of
 a 3300x2550 letter page at W = 64, with a spy showing that no distance map
 was built on the card) and BSVD
 (codec 11 on one page, ``learn`` on both distance routes, the ``bsvd`` CLI
-at K = 512).  Every codec-8 stream is checked byte for byte against the
+at K = 512, with a spy showing that each packed pursuit on the card was one
+launch of the pursuit kernel, with no K5 or K6 launch and no host sync).  Every codec-8 stream is checked byte for byte against the
 native host encoder, the codec-11 stream against the same encode on the
 CPU, and each is round-tripped; stages and kernels are timed with CUDA
 events (K1's, K2's, K3's and K4's kernels also by torch.profiler's device
 times; the W = 16 and W = 64 encodes split into stages),
 and each kernel's time is printed beside its least time on the card
 (``utils/roofline``) and, for K1's plane, K5 and K6, the one PyTorch call
-that computes the same function.  K2's round counter is held against the
+that computes the same function; the pursuit kernel also beside the sweep
+route it replaced (K5 and K6 once per sweep), per call and per learn.  K2's round counter is held against the
 CPU model of its order of work, and K2 is timed beside its serial design
 (``scripts/k2_serial.cu``, built beside the kernels).  Imports no JAX.
 
@@ -445,8 +449,12 @@ K5_CASES = [(77, 130, 33), (300, 64, 16),
             (121, 2304, 512),
             (4096, 256, 256), (4096, 1024, 256), (2048, 2048, 128),
             (64, 2080, 40), (256, 4096, 64)]
-BENCH_BSVD = ((1024, 256, 64), (4096, 256, 256), (4096, 1024, 256),
-              (2048, 2048, 128))
+BENCH_BSVD = ((1024, 256, 64), (1024, 256, 512), (4096, 256, 256),
+              (4096, 1024, 256), (2048, 2048, 128))
+# the planted letter page: the 16 x 16 patches of a 3300 x 2550 page (207 x
+# 160 = 33,120 rows of 256 bits) against K = 512 atoms, from
+# RandomState(33120)
+LETTER_PURSUIT = (33120, 256, 512)
 
 
 def dense_rows(N, M, K, dev):
@@ -494,6 +502,88 @@ def check_k6(pd, bsvd, dev) -> int:
             raise AssertionError(f"K6 disagrees at N={N} M={M}")
     log(f"K6 on the {len(K5_CASES)} K5 row sets: max_abs_err={worst}")
     return worst
+
+
+def planted_pursuit(N, M, K, seed, dev):
+    """Planted pursuit inputs, int8 on `dev`, from RandomState(seed): D =
+    rand(K, M) < 0.25, A* = rand(N, K) < 3/K, E = (A* D mod 2) ^ (rand(N,
+    M) < 0.05) and A = 0, so rows recover about 3 atoms each.  The product
+    is float32 on the card (sums of at most K ones, exact)."""
+    rs = np.random.RandomState(seed)
+    D = rs.rand(K, M) < 0.25
+    Astar = rs.rand(N, K) < 3.0 / K
+    noise = torch.from_numpy(rs.rand(N, M) < 0.05).to(dev)
+    Dt = torch.from_numpy(D).to(dev)
+    prod = torch.from_numpy(Astar).to(dev).float() @ Dt.float()
+    E = (torch.remainder(prod, 2.0) == 1.0) ^ noise
+    return (E.to(torch.int8), Dt.to(torch.int8),
+            torch.zeros((N, K), dtype=torch.int8, device=dev))
+
+
+def check_pursuit(pd, bsvd, dev):
+    """The pursuit kernel == ``packed_pursuit_plain`` on the same CUDA
+    tensors, exactly (the packed E, A, the changed count, every row's
+    passes), with D staged in shared memory and read from device memory, on
+    the K5_CASES shapes built as planted inputs and on the planted letter
+    page.  Returns the worst error and the letter page's packed inputs."""
+    worst = 0
+    cases = [(N, M, K, N + M + K) for N, M, K in K5_CASES]
+    cases.append(LETTER_PURSUIT + (LETTER_PURSUIT[0],))
+    for N, M, K, seed in cases:
+        E, D, A = planted_pursuit(N, M, K, seed, dev)
+        Ep0, Dp = bsvd._pack(E), bsvd._pack(D)
+        Ew, Aw = Ep0.clone(), A.clone()
+        want = pd.packed_pursuit_plain(Ew, Dp, Aw, K)
+        for stage in (1, 0):
+            Eg, Ag = Ep0.clone(), A.clone()
+            got = pd._launch_pursuit(Eg, Dp, Ag, K, stage=stage)
+            torch.cuda.synchronize()
+            err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                      for a, b in ((Eg, Ew), (Ag, Aw), (got[0], want[0]),
+                                   (got[1], want[1])))
+            worst = max(worst, err)
+            log(f"pursuit [{N}, {Dp.shape[1]}] x [{K}, {Dp.shape[1]}] (M={M}) "
+                f"D {'in shared memory' if stage else 'from device memory'}: "
+                f"changed {int(want[0])}, passes {int(want[1].sum())} (max "
+                f"{int(want[1].max())}), max_abs_err={err}")
+            if err != 0:
+                raise AssertionError(f"the pursuit kernel disagrees at N={N} "
+                                     f"M={M} K={K}, stage {stage}")
+    return worst, (Ep0, Dp, A)
+
+
+def pursuit_spy(bsvd, _cuda, fn):
+    """Run fn() with a spy on ``bsvd.update_coefficients``: each packed-route
+    call on CUDA tensors must launch the pursuit kernel once and nothing
+    else of ours (no K5, no K6), with torch's sync debug mode set to
+    "error" around it (no host sync inside)."""
+    orig, calls = bsvd.update_coefficients, []
+
+    def spy(E, D, A, max_flips=None, distances="packed"):
+        if not E.is_cuda or distances != "packed":
+            return orig(E, D, A, max_flips, distances)
+        before = dict(_cuda.launches)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = orig(E, D, A, max_flips, distances)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        delta = {k: n - before.get(k, 0) for k, n in _cuda.launches.items()
+                 if n != before.get(k, 0)}
+        calls.append(delta)
+        if delta != {"packed_pursuit": 1}:
+            raise AssertionError(f"update_coefficients launched {delta}")
+        return out
+    bsvd.update_coefficients = spy
+    try:
+        fn()
+    finally:
+        bsvd.update_coefficients = orig
+    log(f"bsvd path: {len(calls)} packed update_coefficients calls on the "
+        f"card, each one packed_pursuit launch, no K5 or K6 launch, no host "
+        f"sync")
+    if not calls:
+        raise AssertionError("no packed pursuit ran on the card")
 
 
 def bsvd_path(codec, bsvd, cli, pnm, dev):
@@ -595,11 +685,111 @@ def nd(v) -> str:
     return "not measured" if v is None else f"{v:.4f} ms"
 
 
-def bsvd_times(codec, bsvd, pd, pnm, dev, gpu):
+def first_pursuit_inputs(bsvd, fn):
+    """Run fn() and return copies of the (E, D, A) of its first
+    ``update_coefficients`` call."""
+    orig, got = bsvd.update_coefficients, []
+
+    def spy(E, D, A, *a, **k):
+        if not got:
+            got.append((E.clone(), D.clone(), A.clone()))
+        return orig(E, D, A, *a, **k)
+    bsvd.update_coefficients = spy
+    try:
+        fn()
+    finally:
+        bsvd.update_coefficients = orig
+    return got[0]
+
+
+def sweep_route(bsvd, pd):
+    """``update_coefficients`` on the packed route as it was before the
+    pursuit kernel: ``pd.sweeps`` over the K5 and K6 kernels, one K5 launch
+    and one host sync per sweep.  For the A/B only."""
+    def update_coefficients(E, D, A, max_flips=None, distances="packed"):
+        M, K = E.shape[1], D.shape[0]
+        Ep = bsvd._pack(E)
+        A = A.clone(memory_format=torch.contiguous_format)
+        changed, _ = pd.sweeps(Ep, bsvd._pack(D), A,
+                               K if max_flips is None else max_flips,
+                               pd.packed_dist_matrix, pd.packed_row_weight)
+        return bsvd.bitpack.unpack(Ep, M).to(E.dtype), A, changed
+    return update_coefficients
+
+
+def pursuit_kernel_times(pd, roofline, Ep0, Dp, A0, name, gpu, reps=20):
+    """The pursuit kernel on fresh copies of (Ep0, A0): per call by CUDA
+    events (the ctypes call: memset and kernel) and on the device by
+    torch.profiler, against its bound from this run's passes; beside the
+    plain version and the sweep route over the K5 and K6 kernels on the
+    same inputs (host clock: they sync every sweep).  Returns (ms, device
+    ms, plain ms, bound)."""
+    N, nw = Ep0.shape
+    K = Dp.shape[0]
+    _, passes = pd._launch_pursuit(Ep0.clone(), Dp, A0.clone(), K)
+    P = int(passes.sum())
+    bound = roofline.bound_ms(**dict(zip(("popcounts", "nbytes"),
+                                         roofline.pursuit_work(P, N, K, nw))))
+
+    def fresh():
+        copies = iter([(Ep0.clone(), A0.clone()) for _ in range(reps + 1)])
+
+        def launch():
+            Ep, A = next(copies)
+            return pd._launch_pursuit(Ep, Dp, A, K)
+        return launch
+    ms = cuda_ms(fresh(), reps)
+    dev_ms = device_ms(fresh(), "packed_pursuit_kernel", reps)
+    plain = host_ms(lambda: pd.packed_pursuit_plain(Ep0.clone(), Dp,
+                                                    A0.clone(), K), 3)
+    sweep = host_ms(lambda: pd.sweeps(Ep0.clone(), Dp, A0.clone(), K,
+                                      pd.packed_dist_matrix,
+                                      pd.packed_row_weight), 5)
+    pct = "" if dev_ms is None else f", {100 * bound[0] / dev_ms:.1f} % of bound"
+    log(f"pursuit kernel, {name} ([{N}, {nw}] x [{K}, {nw}], {P} passes, "
+        f"max {int(passes.max())}): {ms:.4f} ms per call (CUDA events), "
+        f"{nd(dev_ms)} on the device (torch.profiler){pct}; bound "
+        f"{bound[0]:.6f} ms ({bound[1]}); the sweep route (K5 + K6 kernels "
+        f"per sweep) {sweep:.4f} ms, the plain version {plain:.3f} ms (host "
+        f"clock) [{gpu}]")
+    return ms, dev_ms, plain, bound
+
+
+def pursuit_call_parts(bsvd, pd, E0, D0, A0, name, gpu, reps=20):
+    """One packed ``update_coefficients`` call split into its steps, each
+    timed alone by the host clock (synchronised, mean of reps): packing E
+    and D, the copy of A, the pursuit's ctypes call (on fresh copies) and
+    unpacking E, beside the whole call."""
+    M, K = E0.shape[1], D0.shape[0]
+    Ep0, Dp = bsvd._pack(E0), bsvd._pack(D0)
+    copies = iter([(Ep0.clone(), A0.clone()) for _ in range(reps + 1)])
+
+    def launch():
+        Ep, A = next(copies)
+        return pd._launch_pursuit(Ep, Dp, A, K)
+    t = {"pack E": host_ms(lambda: bsvd._pack(E0), reps),
+         "pack D": host_ms(lambda: bsvd._pack(D0), reps),
+         "copy A": host_ms(lambda: A0.clone(
+             memory_format=torch.contiguous_format), reps),
+         "pursuit (one ctypes call)": host_ms(launch, reps),
+         "unpack E": host_ms(lambda: bsvd.bitpack.unpack(Ep0, M).to(
+             E0.dtype), reps),
+         "whole call": host_ms(lambda: bsvd.update_coefficients(E0, D0, A0),
+                               reps)}
+    log(f"update_coefficients {name}, by step (host clock, synchronised, "
+        f"mean of {reps}): " + ", ".join(f"{k} {v:.4f} ms"
+                                          for k, v in t.items())
+        + f" [{gpu}]")
+
+
+def bsvd_times(codec, bsvd, pd, pnm, roofline, letter, dev, gpu):
     """K5 beside its plain version and the matmul route, K6 beside its plain
-    version, codec 11 end to end split into learning and the writer, and
-    learning on both distance routes with the atom loop's and the pursuit's
-    shares."""
+    version; the pursuit kernel against its bound and the sweep route at
+    doc512 K = 64 and K = 512 (each learn's first call) and on the planted
+    letter page; codec 11 end to end split into learning and the writer;
+    and learning with the atom loop's and the pursuit's shares, the
+    pursuit kernel and the sweep route in turns (kernel, sweep, sweep,
+    kernel, twice)."""
     k5 = {}
     for N, M, K in BENCH_BSVD:
         E, D = dense_rows(N, M, K, dev)
@@ -611,9 +801,12 @@ def bsvd_times(codec, bsvd, pd, pnm, dev, gpu):
             route=cuda_ms(lambda: bsvd.distances_to_atoms(E, D, "packed"),
                           20))
         k5[(N, M, K)] = t
+        b5 = roofline.bound_ms(**dict(zip(
+            ("popcounts", "nbytes"), roofline.k5_work(N, K, a.shape[1]))))
         log(f"K5 N={N} M={M} K={K}: kernel {t['k5']:.4f} ms, plain "
             f"{t['plain']:.3f} ms, mxu route (f32 matmul) {t['mxu']:.4f} ms, "
-            f"packed route (pack + K5) {t['route']:.4f} ms [{gpu}]")
+            f"packed route (pack + K5) {t['route']:.4f} ms; bound "
+            f"{b5[0]:.6f} ms ({b5[1]}) [{gpu}]")
         dk = device_ms(lambda: pd._launch_dist(a, b), "packed_dist_kernel")
         log(f"  K5 device time alone (torch.profiler, mean of 20): "
             f"{nd(dk)} [{gpu}]")
@@ -638,6 +831,18 @@ def bsvd_times(codec, bsvd, pd, pnm, dev, gpu):
     doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
     p = codec.CodecParams(codec=11, W=16, T=0, R=0)
     X = bsvd.patchify_to_rows(torch.from_numpy(doc).to(dev), 16)
+    pursuit = {}
+    for K in (64, 512):
+        E0, D0, A0 = first_pursuit_inputs(
+            bsvd, lambda: bsvd.learn(X, K=K, init="random_centroids",
+                                     max_iters=1))
+        pursuit[K] = pursuit_kernel_times(
+            pd, roofline, bsvd._pack(E0), bsvd._pack(D0),
+            A0.contiguous(), f"doc512 K={K}, first call of learn", gpu)
+        pursuit_call_parts(bsvd, pd, E0, D0, A0.contiguous(),
+                           f"doc512 K={K}, first call of learn", gpu)
+    pursuit_kernel_times(pd, roofline, *letter, "planted letter page", gpu,
+                         reps=10)
 
     def learn():
         E, D, A, _ = bsvd.learn(X, K=64, init="random_centroids")
@@ -651,24 +856,58 @@ def bsvd_times(codec, bsvd, pd, pnm, dev, gpu):
     log(f"codec 11 doc512 W=16 K=64 (host clock, mean of 5): encode "
         f"{t_enc:.3f} ms; of it, learning {t_learn:.3f} ms and _write_bsvd "
         f"{t_write:.3f} ms timed alone; decode {t_dec:.3f} ms [{gpu}]")
+    sweeps = sweep_route(bsvd, pd)
     for K in (64, 512):
-        for route in ("packed", "mxu"):
-            with _Timed(bsvd, ("update_coefficients",
-                               "update_dictionary_steepest")) as tm:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                _, _, _, iters = bsvd.learn(X, K=K, init="random_centroids",
-                                            distances=route)
-                torch.cuda.synchronize()
-                total = (time.perf_counter() - t0) * 1e3
-            pursuit = tm.ms["update_coefficients"]
-            atoms = tm.ms["update_dictionary_steepest"]
-            log(f"learn doc512 W=16 K={K} distances={route}: {total:.3f} ms, "
-                f"{iters} iterations; atom loop (update_dictionary_steepest) "
-                f"{atoms:.3f} ms ({100 * atoms / total:.1f} %), pursuit "
-                f"{pursuit:.3f} ms ({100 * pursuit / total:.1f} %) [{gpu}]")
+        runs = {"kernel": [], "sweeps": []}
+        states = {}
+        for route in ("kernel", "sweeps", "sweeps", "kernel") * 2 + ("mxu",):
+            total, pur, atoms, iters, state = timed_learn(
+                bsvd, X, K, sweeps if route == "sweeps" else None,
+                "mxu" if route == "mxu" else "packed")
+            states.setdefault(route, state)
+            if route == "mxu":
+                log(f"learn doc512 W=16 K={K} distances=mxu: {total:.3f} ms, "
+                    f"{iters} iterations; atom loop {atoms:.3f} ms "
+                    f"({100 * atoms / total:.1f} %), pursuit {pur:.3f} ms "
+                    f"({100 * pur / total:.1f} %) [{gpu}]")
+            else:
+                runs[route].append((pur, total, atoms, iters))
+        if not all(all(torch.equal(a, b) for a, b in zip(st, states["kernel"]))
+                   for st in states.values()):
+            raise AssertionError(f"learn K={K}: the routes' states differ")
+        for route, rs in runs.items():
+            pur = sorted(r[0] for r in rs)
+            tot = sorted(r[1] for r in rs)
+            log(f"learn doc512 W=16 K={K}, packed pursuit by the "
+                f"{'pursuit kernel' if route == 'kernel' else 'sweep route (K5 + K6)'}"
+                f": pursuit ms per learn {fmt(pur)} (median "
+                f"{float(np.median(pur)):.3f}), learn {fmt(tot)} ms; atom loop "
+                f"median {float(np.median([r[2] for r in rs])):.3f} ms, "
+                f"{rs[0][3]} iterations [{gpu}]")
     c11 = k5[(1024, 256, 64)]
-    return c11["k5"], c11["plain"], k6, k6p, lib5, lib6
+    return c11["k5"], c11["plain"], k6, k6p, lib5, lib6, pursuit[64]
+
+
+def timed_learn(bsvd, X, K, route_fn, distances):
+    """One learn of X at K (random-centroid init), with
+    ``update_coefficients`` replaced by route_fn where given: (total ms,
+    pursuit ms, atom-loop ms, iterations, (E, D, A)), synchronised timers."""
+    orig = bsvd.update_coefficients
+    if route_fn is not None:
+        bsvd.update_coefficients = route_fn
+    try:
+        with _Timed(bsvd, ("update_coefficients",
+                           "update_dictionary_steepest")) as tm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            E, D, A, iters = bsvd.learn(X, K=K, init="random_centroids",
+                                        distances=distances)
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+    finally:
+        bsvd.update_coefficients = orig
+    return (total, tm.ms["update_coefficients"],
+            tm.ms["update_dictionary_steepest"], iters, (E, D, A))
 
 
 def drive(name, fn, _cuda, needs):
@@ -1071,6 +1310,7 @@ def main() -> int:
     err4, err4p = check_k4(sw, fs, pnm, dev)
     err5 = check_k5(pd, bsvd, dev)
     err6 = check_k6(pd, bsvd, dev)
+    err_p, letter = check_pursuit(pd, bsvd, dev)
 
     causal = drive("causal", lambda: main_path(compress, archive, codec,
                                                native, pnm),
@@ -1082,15 +1322,19 @@ def main() -> int:
     banded = drive("banded", lambda: no_maps_on_card(
         search, lambda: banded_path(compress, codec, native, pnm)),
                    _cuda, ("banded_plane", "select_windows", "decide_modes"))
-    bsvd_c = drive("bsvd", lambda: bsvd_path(codec, bsvd, cli, pnm, dev),
-                   _cuda, ("packed_dist_matrix", "packed_row_weight"))
+    bsvd_c = drive("bsvd", lambda: pursuit_spy(
+        bsvd, _cuda, lambda: bsvd_path(codec, bsvd, cli, pnm, dev)),
+                   _cuda, ("packed_pursuit",))
+    if bsvd_c.get("packed_dist_matrix") or bsvd_c.get("packed_row_weight"):
+        raise AssertionError("K5 or K6 ran on the bsvd path")
 
     img, _, out = stage_times(compress, fs, bitpack, codec, pnm, dev, gpu)
     kt = kernel_times(compress, fs, dc, roofline, img, out, serial, dev,
                       gpu)
     k3, k3p, b3, k4t, plane4 = new_path_times(
         compress, codec, st, sw, fs, bitpack, pnm, roofline, dev, gpu)
-    k5, k5p, k6, k6p, lib5, lib6 = bsvd_times(codec, bsvd, pd, pnm, dev, gpu)
+    k5, k5p, k6, k6p, lib5, lib6, pur = bsvd_times(codec, bsvd, pd, pnm,
+                                                   roofline, letter, dev, gpu)
     pops5, bytes5 = roofline.k5_work(1024, 64, 8)
     pops6, bytes6 = roofline.k6_work(1024, 8)
     b5 = roofline.bound_ms(popcounts=pops5, nbytes=bytes5)
@@ -1118,9 +1362,12 @@ def main() -> int:
         entry("select_windows", "select_windows.cu", "pallas_kernels.py:407",
               banded["select_windows"], err4, *k4t),
         entry("packed_dist_matrix", "packed_dist.cu", "pallas_kernels.py:45",
-              bsvd_c["packed_dist_matrix"], err5, k5, k5p, b5, lib5),
+              bsvd_c.get("packed_dist_matrix", 0), err5, k5, k5p, b5, lib5),
         entry("packed_row_weight", "packed_dist.cu", "pallas_kernels.py:728",
-              bsvd_c["packed_row_weight"], err6, k6, k6p, b6, lib6),
+              bsvd_c.get("packed_row_weight", 0), err6, k6, k6p, b6, lib6),
+        entry("packed_pursuit", "packed_pursuit.cuh",
+              "pallas_kernels.py:45 and :728", bsvd_c["packed_pursuit"],
+              err_p, pur[0], pur[2], pur[3], None),
     ]
     log(json.dumps({"kernels": kernels}))
     log(card())

@@ -1,4 +1,5 @@
-"""K1-K6 on the card against their plain PyTorch versions, the port's
+"""K1-K6 and the BSVD pursuit kernel on the card against their plain
+PyTorch versions, the port's
 causal and strict encodes on the card against the native host encoder, and
 codec 11 and BSVD learning on the card against the CPU run.
 
@@ -277,19 +278,60 @@ def test_k5_k6_kernels_match_plain(dev, n, k, words):
 
 
 def test_codec11_on_card_matches_cpu(dev):
+    """Codec 11's pursuit goes through the pursuit kernel alone: K5 and K6
+    do not run on its path."""
     img = pnm.read_pbm(os.path.join(FIX, "ragged75x101.pbm"))
     p = codec.CodecParams(codec=11, W=8, T=0, R=0)
     before = dict(_cuda.launches)
     blob = codec.encode(img, p, device="cuda")
+    assert _cuda.launches["packed_pursuit"] > before.get("packed_pursuit", 0)
     for name in ("packed_dist_matrix", "packed_row_weight"):
-        assert _cuda.launches[name] > before.get(name, 0)
+        assert _cuda.launches[name] == before.get(name, 0)
     assert blob == codec.encode(img, p, device="cpu")
     np.testing.assert_array_equal(codec.decode(blob), img)
 
 
+def _planted(N, M, K, seed):
+    """E = (A* D mod 2) ^ 5 % noise, D of density 1/4, about 3 atoms a row
+    (chip_smoke's planted pursuit inputs), and A = 0."""
+    rs = np.random.RandomState(seed)
+    D = rs.rand(K, M) < 0.25
+    Astar = rs.rand(N, K) < 3.0 / K
+    E = ((Astar.astype(np.int64) @ D.astype(np.int64)) % 2 == 1) ^ (
+        rs.rand(N, M) < 0.05)
+    return [torch.from_numpy(x.astype(np.int8))
+            for x in (E, D, np.zeros((N, K)))]
+
+
+@pytest.mark.parametrize("stage", [0, 1])
+@pytest.mark.parametrize("N,M,K", [(1, 1, 1), (33, 32, 65), (77, 130, 33),
+                                   (1024, 256, 64), (512, 512, 512),
+                                   (64, 2080, 40), (256, 4096, 64),
+                                   (300, 64, 16)])
+def test_pursuit_kernel_matches_plain(dev, N, M, K, stage):
+    """The pursuit kernel == ``packed_pursuit_plain`` on the same CUDA
+    tensors: E, A, the changed count and every row's passes; the dictionary
+    in shared memory (1) and read from device memory (0); register rows (up
+    to 16 words) and rows in place."""
+    E, D, A = (x.to(dev) for x in _planted(N, M, K, N + M + K))
+    Ep, Dp = bsvd._pack(E), bsvd._pack(D)
+    Ep2, A2 = Ep.clone(), A.clone()
+    before = _cuda.launches["packed_pursuit"]
+    got = packed_dist._launch_pursuit(Ep, Dp, A, K, stage=stage)
+    assert _cuda.launches["packed_pursuit"] == before + 1
+    want = packed_dist.packed_pursuit_plain(Ep2, Dp, A2, K)
+    torch.cuda.synchronize()
+    assert torch.equal(Ep, Ep2) and torch.equal(A, A2)
+    assert int(got[0]) == int(want[0])
+    assert torch.equal(got[1], want[1])
+    assert N == 1 or int(want[0]) > 0
+
+
 @pytest.mark.parametrize("m", [2080, 4096])
 def test_wide_pursuit_on_card_launches_k5(dev, m):
-    """Rows wider than JAX's packed bound (2048 bits) still take K5."""
+    """Rows wider than JAX's packed bound (2048 bits): one pursuit launch
+    per ``update_coefficients`` call, no K5 or K6 launch and no host sync
+    inside it, and the CPU's result."""
     rs = np.random.RandomState(m)
     D = rs.rand(8, m) < 0.25
     A = rs.rand(48, 8) < 0.15
@@ -297,12 +339,18 @@ def test_wide_pursuit_on_card_launches_k5(dev, m):
         rs.rand(48, m) < 0.3)
     args = [torch.from_numpy(x.astype(np.int8)) for x in (E, D, A)]
     want = bsvd.update_coefficients(*args)
+    cargs = [x.to(dev) for x in args]
+    torch.cuda.synchronize()
     before = dict(_cuda.launches)
-    got = bsvd.update_coefficients(*(x.to(dev) for x in args))
-    assert _cuda.launches["packed_dist_matrix"] > before.get(
-        "packed_dist_matrix", 0)
-    assert _cuda.launches["packed_row_weight"] == before.get(
-        "packed_row_weight", 0) + 1
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = bsvd.update_coefficients(*cargs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _cuda.launches["packed_pursuit"] == before.get(
+        "packed_pursuit", 0) + 1
+    for name in ("packed_dist_matrix", "packed_row_weight"):
+        assert _cuda.launches[name] == before.get(name, 0)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
     assert int(want[2]) > 0
