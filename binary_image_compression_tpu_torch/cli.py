@@ -1,4 +1,5 @@
-"""Command line of the PyTorch/CUDA port (codecs 8 and 11, BSVD learning).
+"""Command line of the PyTorch/CUDA port (codecs 8, 11 and 13, BSVD
+learning).
 
 Counterpart of ``binary_image_compression_tpu/cli.py`` for the commands the
 port covers:
@@ -11,11 +12,15 @@ port covers:
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain PyTorch
 versions of the kernels.  ``compress --codec 11`` is the learned-dictionary
-patch codec; ``--mode strict`` encodes codec 8 with the residual-
-substitution kernel K3 (archives: the native host encoder per page).
-``bsvd`` is the JAX CLI's device backend (``--backend tpu``) of bsvd_test;
-the rand48 reference replay (``--backend ref``) is not ported.  Other codecs
-exit with the ROADMAP item that will port them.
+patch codec; ``--codec 13`` the striped context-adaptive coder, its context
+map on the device and its entropy coder on the host (``--entropy host``,
+the default) or on the device (``--entropy device``: static table and
+interleaved rANS, kernel K7); ``--codec auto`` keeps the smaller of codec
+13 (host entropy) and codec 8.  ``--mode strict`` encodes codec 8 with the
+residual-substitution kernel K3 (archives: the native host encoder per
+page).  ``bsvd`` is the JAX CLI's device backend (``--backend tpu``) of
+bsvd_test; the rand48 reference replay (``--backend ref``) is not ported.
+Other codecs exit with the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -32,47 +37,70 @@ BSVD_INITS = {0: "neighbor", 1: "partition", 2: "random_centroids",
               3: "random_centroids", 4: "graph_grow"}
 
 
-def _params(args, codecs=(8, 11)):
+def _params(args, codecs=(8, 11, 13)):
     from .models import codec
-    if args.codec not in codecs:
+    cid = int(args.codec) if args.codec.isdigit() else None
+    if cid not in codecs:
         sys.exit(f"{args.cmd} --codec {args.codec} is not ported yet: "
-                 "codecs 4/7 are ROADMAP.md Queue 1 item 12, codec 13 item 7, "
-                 "codec-11 archives are left over from item 9; use the JAX "
-                 "package (python -m binary_image_compression_tpu)")
-    return codec.CodecParams(codec=args.codec, W=args.W, T=args.T, R=args.R,
+                 "codecs 4/7 are ROADMAP.md Queue 1 item 4, codec 10 item 3, "
+                 "codecs 1/2/3/6/12 item 5, codec-11 and codec-13 archives "
+                 "item 7; use the JAX package "
+                 "(python -m binary_image_compression_tpu)")
+    return codec.CodecParams(codec=cid, W=args.W, T=args.T, R=args.R,
                              strict=args.mode == "strict")
 
 
 def _add_codec_opts(p):
-    p.add_argument("--codec", type=int, default=8, help="codec id (8, 11)")
+    p.add_argument("--codec", default="8",
+                   help="codec id (8, 11, 13) or auto: the smaller of "
+                        "codec 13 and codec 8")
     p.add_argument("-W", type=int, default=16, help="tile width")
     p.add_argument("-T", type=int, default=None, help="early-exit threshold")
     p.add_argument("-R", type=int, default=128, help="search radius")
     p.add_argument("--mode", choices=["strict", "causal"], default="causal")
     p.add_argument("--device", default="cuda",
                    help="torch device for the analysis: cuda (default) or cpu")
+    p.add_argument("--entropy", choices=["host", "device"], default="host",
+                   help="codec 13 only: host = adaptive range coder "
+                        "(payload mode 1), device = static table and "
+                        "interleaved rANS built on the device (mode 2)")
+
+
+def _encode8(img, params, device):
+    from .models import compress
+    if params.strict:
+        return compress.encode_strict(img, params, device=device)
+    return compress.encode(img, params, device=device)
 
 
 def cmd_compress(args):
-    from .models import compress
+    from .models import codec, compress
     from .utils import pnm
     if os.path.splitext(args.input)[1].lower() != ".pbm":
         sys.exit("grayscale and color input are not ported yet "
-                 "(ROADMAP.md Queue 1 item 8)")
-    params = _params(args)
+                 "(ROADMAP.md Queue 1 item 3)")
     img = pnm.read_pbm(args.input)
-    if params.codec == 11:
-        from .models import codec
-        blob = codec.encode(img, params, device=args.device)
-    elif params.strict:
-        blob = compress.encode_strict(img, params, device=args.device)
+    if args.codec == "auto":
+        # the smaller of codec 13 (host entropy) and codec 8 (JAX cli.py:127)
+        p13 = codec.CodecParams(codec=13, W=0, T=0, R=0)
+        p8 = codec.CodecParams(codec=8, W=args.W, R=args.R,
+                               strict=args.mode == "strict")
+        blob = min((compress.encode_scab(img, p13, device=args.device),
+                    _encode8(img, p8, args.device)), key=len)
     else:
-        blob = compress.encode(img, params, device=args.device)
+        params = _params(args)
+        if params.codec == 13:
+            blob = compress.encode_scab(img, params, entropy=args.entropy,
+                                        device=args.device)
+        elif params.codec == 11:
+            blob = codec.encode(img, params, device=args.device)
+        else:
+            blob = _encode8(img, params, args.device)
     with open(args.output, "wb") as f:
         f.write(blob)
     raw = img.size // 8
     print(f"{args.input}: {raw}B raw -> {len(blob)}B "
-          f"({100.0 * len(blob) / raw:.2f}%)")
+          f"({100.0 * len(blob) / raw:.2f}%, codec {blob[8]})")
 
 
 def cmd_decompress(args):
@@ -167,13 +195,14 @@ def main(argv=None):
         formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("compress", help="PBM -> .bic (codecs 8, 11)")
+    p = sub.add_parser("compress", help="PBM -> .bic (codecs 8, 11, 13)")
     p.add_argument("input")
     p.add_argument("output")
     _add_codec_opts(p)
     p.set_defaults(fn=cmd_compress)
 
-    p = sub.add_parser("decompress", help=".bic -> PBM (codecs 4/6/7/8, 11)")
+    p = sub.add_parser("decompress",
+                       help=".bic -> PBM (codecs 4/6/7/8, 11, 13)")
     p.add_argument("input")
     p.add_argument("output")
     p.set_defaults(fn=cmd_decompress)

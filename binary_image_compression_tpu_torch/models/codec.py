@@ -1,15 +1,21 @@
-"""BIC1 container: parameters, header, codec 11 and decode.
+"""BIC1 container: parameters, header, codecs 11 and 13, and decode.
 
 Counterpart of ``binary_image_compression_tpu/models/codec.py`` for the
 codecs the port covers: ``CodecParams`` with ``resolved_T``, ``MAGIC``,
 ``HEADER_LEN``, ``image_crc``, ``_header``; ``encode`` for codec 11, the
 learned-dictionary (BSVD) patch codec (``_encode_bsvd`` :847, split here
-into the learning step and ``_write_bsvd``); and ``decode`` for the
+into the learning step and ``_write_bsvd``), and for codec 13, the
+stripe-parallel context-adaptive range coder (``scab_defaults`` :1000,
+``_encode_scab`` :1036, native only); and ``decode`` for the
 windowed codecs 4/6/7/8, through the shared native decoder
 ``bic_decode_windowed`` or, for pages past its bound, the numpy
 ``_decode_windowed`` (:459, with ``window_candidates`` :65 and ``_unmed``
-:188), and for codec 11 (``_decode_bsvd`` :908, numpy on the host).  Codec 8
-is encoded by ``models/compress``.
+:188), for codec 11 (``_decode_bsvd`` :908, numpy on the host) and for
+codec 13 in both payload modes (``_decode_scab`` :1086, with
+``_decode_scab_rans`` :1121, native only).  Codec 8, and codec 13 with its
+context map on the device, are encoded by ``models/compress``.  The JAX
+package's pure-Python range coders are its fallback for a missing native
+library, which the port does not have, so they are not ported.
 
 Container: magic "BIC1" | u32 crc32 of the packed image | u8 codec | u8
 flags (bit0 strict) | u16 W | u32 rows | u32 cols | u32 T | u32 R | payload.
@@ -34,6 +40,7 @@ MAGIC = b"BIC1"
 HEADER_LEN = 28
 WINDOWED_CODECS = (4, 6, 7, 8)
 BSVD_CODEC = 11
+SCAB_CODEC = 13
 # the largest page a header may declare (JAX codec.py:425)
 MAX_PIXELS = 2 ** 31
 # the largest page bic_decode_windowed takes (native/bic_native.cpp:593);
@@ -89,13 +96,16 @@ def _check_W(params) -> None:
 
 def encode(img: np.ndarray, params: CodecParams, *, device="cuda") -> bytes:
     """Encode one page with codec 11, learning the dictionary on `device`
-    (cuda, or cpu for the plain kernels).  Codec 8 is
-    ``compress.encode``."""
+    (cuda, or cpu for the plain kernels), or with codec 13 on the host (the
+    native coder with its own context scan; ``compress.encode_scab`` maps
+    the contexts on the device).  Codec 8 is ``compress.encode``."""
+    if params.codec == SCAB_CODEC:
+        return _encode_scab(np.asarray(img, dtype=bool), params)
     if params.codec != BSVD_CODEC:
         raise NotImplementedError(
-            f"codec {params.codec}: codec.encode takes codec 11; codec 8 is "
-            "compress.encode (codecs 4/7 are ROADMAP.md Queue 1 item 12, "
-            "13 is item 7)")
+            f"codec {params.codec}: codec.encode takes codecs 11 and 13; "
+            "codec 8 is compress.encode (codecs 4/7 are ROADMAP.md Queue 1 "
+            "item 4)")
     _check_W(params)
     return _encode_bsvd(np.asarray(img, dtype=bool), params,
                         learn_backend=device)
@@ -109,7 +119,7 @@ def _encode_bsvd(img, params, *, K=64, learn_backend="cuda",
     if learn_backend == "ref":
         raise NotImplementedError(
             "learn_backend='ref' (the rand48 replay in bsvd_ref) is not "
-            "ported yet: ROADMAP.md Queue 1 item 11")
+            "ported yet: ROADMAP.md Queue 1 item 6")
     import torch
 
     from . import bsvd
@@ -177,6 +187,49 @@ def _decode_bsvd(r: BitReader, W, rows, cols) -> np.ndarray:
             out[ti * W:(ti + 1) * W, tj * W:(tj + 1) * W] = \
                 patch.reshape(W, W)
     return out[:rows, :cols]
+
+
+def scab_defaults(params: CodecParams, rows: int) -> tuple[int, int]:
+    """(template bits, n_stripes) for codec 13: params.W picks the template
+    when it is 10 or 12 (default 12); params.T the stripe count (0 or None:
+    one stripe per 128 rows, clamped to [1, 16]), at most one per row."""
+    tmpl = params.W if params.W in (10, 12) else 12
+    n_stripes = params.T if params.T else max(1, min(16, rows // 128))
+    return tmpl, min(n_stripes, rows)
+
+
+def scab_stripes(params: CodecParams, rows: int) -> tuple[int, int, int]:
+    """(template bits, n_stripes, stripe_rows) of a codec-13 page: stripes
+    of ceil(rows / n_stripes) rows, and as many as that takes, so that no
+    stripe is empty (the native coder's rule, bic_native.cpp
+    bic_scab_encode)."""
+    tmpl, n_stripes = scab_defaults(params, rows)
+    stripe_rows = -(-rows // n_stripes)
+    return tmpl, -(-rows // stripe_rows), stripe_rows
+
+
+def _encode_scab(img, params, ctx_pre=None) -> bytes:
+    """Codec 13, payload mode 1: horizontal stripes coded as independent
+    context-adaptive range-coder streams (template reads above a stripe's
+    top are 0, models start fresh) by the native coder, stripes across host
+    threads.  ctx_pre: an optional uint16 [rows, cols] context map
+    (``compress.scab_ctx_map``), which must equal the coder's own scan."""
+    img = np.asarray(img, dtype=bool)
+    rows, cols = img.shape
+    tmpl, n_stripes = scab_defaults(params, rows)
+    body = native.scab_encode(img.astype(np.uint8), tmpl, n_stripes,
+                              ramp=True, ctx_pre=ctx_pre)
+    return _header(params, rows, cols, image_crc(img)) + body
+
+
+def _decode_scab(body: bytes, rows: int, cols: int) -> np.ndarray:
+    """A codec-13 payload: mode 2 (static-table rANS, the layout of
+    ``compress._serialize_scab_rans``) or modes 0/1, by the native
+    decoders (stripes across host threads); a payload they reject raises
+    ValueError."""
+    if len(body) >= 2 and body[1] == 2:
+        return native.scab_rans_decode(body, rows, cols)
+    return native.scab_decode(body, rows, cols)
 
 
 def window_candidates(i0: int, j0: int, W: int, R: int,
@@ -253,27 +306,32 @@ def _decode_windowed(r: BitReader, codec, W, rows, cols, R,
 def _check_header(codec: int, W: int, rows: int, cols: int) -> None:
     """Validate header fields, which come from an untrusted stream, before
     any decoder sizes a buffer from them or divides by W (the bounds of
-    JAX codec.py:419-433 for the codecs the port decodes)."""
-    if codec not in WINDOWED_CODECS + (BSVD_CODEC,):
+    JAX codec.py:419-433 for the codecs the port decodes; codec 13 has no
+    tiles, so its W is not bounded)."""
+    if codec not in WINDOWED_CODECS + (BSVD_CODEC, SCAB_CODEC):
         raise NotImplementedError(
-            f"codec {codec}: this port decodes codecs 4/6/7/8 and 11 only "
-            "(the other codecs are ROADMAP.md Queue 1, items 7-8)")
+            f"codec {codec}: this port decodes codecs 4/6/7/8, 11 and 13 "
+            "only (codec 10 is ROADMAP.md Queue 1 item 3, codecs 1/2/3/12 "
+            "item 5)")
     if rows == 0 or cols == 0 or rows * cols > MAX_PIXELS:
         raise ValueError(f"implausible dimensions {rows}x{cols}")
-    if not 1 <= W <= 64:
+    if codec != SCAB_CODEC and not 1 <= W <= 64:
         raise ValueError(f"corrupt BIC1 header: W={W} out of range [1, 64] "
                          f"for codec {codec}")
 
 
 def decode(blob: bytes, *, verify_crc: bool = True) -> np.ndarray:
-    """Decode a BIC1 stream of codec 4/6/7/8 or 11 to bool [rows, cols]."""
+    """Decode a BIC1 stream of codec 4/6/7/8, 11 or 13 to bool
+    [rows, cols]."""
     if blob[:4] != MAGIC or len(blob) < HEADER_LEN:
         raise ValueError("not a BIC1 stream")
     crc, codec, flags, W, rows, cols, _T, R = struct.unpack(
         "<IBBHIIII", blob[4:HEADER_LEN])
     _check_header(codec, W, rows, cols)
     r = BitReader(blob, bit_offset=HEADER_LEN * 8)
-    if codec == BSVD_CODEC:
+    if codec == SCAB_CODEC:
+        out = _decode_scab(blob[HEADER_LEN:], rows, cols)
+    elif codec == BSVD_CODEC:
         out = _decode_bsvd(r, W, rows, cols)
     elif rows * cols > NATIVE_MAX_PIXELS:
         out = _decode_windowed(r, codec, W, rows, cols, R,

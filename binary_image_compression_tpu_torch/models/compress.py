@@ -21,12 +21,24 @@ Strict mode, one page: kernel K3 (ops/strict) runs the whole residual-
 substitution chain and yields the same record block.  Then per page on the
 host, native ``bic_pack_tiles`` writes the stream.  Streams are
 byte-identical to the JAX package's and the host encoder's.
+
+Codec 13 (``encode_scab``, JAX :612): the page is uploaded packed and
+unpacked on the device, where ``scab_ctx_map`` (:592) gives every pixel's
+context id.  Host entropy (payload mode 1): the map is fetched once and the
+native range coder codes it.  Device entropy (mode 2, ``scab_rans_page``
+:649): the context counts, the static table, kernel K7's interleaved-rANS
+streams (ops/ransdevice) and the table section are built on the device;
+the host fetches them and concatenates bytes (``_serialize_scab_rans``
+:697).  Unlike the JAX package's device mode, the stripe count is
+re-derived from the stripe height, so no stripe is empty (its rows=6, T=4
+stream has an empty last stripe, which both decoders reject).
 """
 
 from __future__ import annotations
 
 import collections
 import os
+import struct
 from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
 
@@ -34,12 +46,14 @@ import numpy as np
 import torch
 
 from .. import native
-from ..ops import (bitpack, decide, fused_search, search, select_windows,
-                   strict)
+from ..ops import (bitpack, decide, fused_search, ransdevice, search,
+                   select_windows, strict)
 from ..ops._cuda import resolve_device
-from ..ops.bitstream import BitWriter, enum_encode, enum_nbits, golomb_encode
+from ..ops.bitstream import (BitWriter, enum_encode, enum_nbits,
+                             golomb_encode, words_to_bytes)
 from ..ops.entropy import GolombCoder
-from .codec import CodecParams, _check_W, _header, image_crc
+from .codec import (SCAB_CODEC, CodecParams, _check_W, _encode_scab, _header,
+                    image_crc, scab_stripes)
 
 # pages the native host encoder took: causal R < W, strict shapes outside
 # strict.supported, strict archive pages (not a device launch)
@@ -49,9 +63,9 @@ host_route = collections.Counter()
 def _check_causal8(params):
     if params.codec != 8:
         raise NotImplementedError(
-            f"codec {params.codec}: compress encodes codec 8 only (codec 11 "
-            "is codec.encode; codecs 4/7 are ROADMAP.md Queue 1 item 12; 13 "
-            "is item 7)")
+            f"codec {params.codec}: compress.encode takes codec 8 only "
+            "(codec 11 is codec.encode, codec 13 encode_scab; codecs 4/7 are "
+            "ROADMAP.md Queue 1 item 4)")
     if params.strict:
         raise ValueError("strict mode is encoded by compress.encode_strict")
 
@@ -374,3 +388,155 @@ def encode_strict(img: np.ndarray, params: CodecParams | None = None, *,
                           c["weight"], c["rank"],
                           bitpack.fields_to_words(fields, W))
     return pack_pages(block[None].cpu().numpy(), img[None], params)[0]
+
+
+# (dr, dc, bit) per template: bit `bit` of a pixel's context is the pixel at
+# (r + dr, c + dc); the native coder's incremental scan (bic_native.cpp
+# scan_stripe) lays the bits out the same way
+_SCAB_TMPL = {
+    10: [(-2, -1, 9), (-2, 0, 8), (-2, 1, 7), (-1, -2, 6), (-1, -1, 5),
+         (-1, 0, 4), (-1, 1, 3), (-1, 2, 2), (0, -2, 1), (0, -1, 0)],
+    12: [(-2, -1, 11), (-2, 0, 10), (-2, 1, 9), (-1, -2, 8), (-1, -1, 7),
+         (-1, 0, 6), (-1, 1, 5), (-1, 2, 4), (-1, 3, 3), (0, -3, 2),
+         (0, -2, 1), (0, -1, 0)],
+}
+
+
+def scab_ctx_map(bits: torch.Tensor, *, tmpl: int,
+                 stripe_rows: int) -> torch.Tensor:
+    """Codec-13 context ids of every pixel: int16 [rows, cols].
+
+    bits: 0/1 [rows, cols].  Template reads outside the page or above the
+    pixel's stripe top are 0: each stripe gets two zero rows above it and
+    the page three zero columns on each side, and every template bit is a
+    shifted view of that."""
+    rows, cols = bits.shape
+    S = -(-rows // stripe_rows)
+    F = torch.nn.functional
+    g = F.pad(bits.to(torch.int16), (0, 0, 0, S * stripe_rows - rows))
+    g = F.pad(g.reshape(S, stripe_rows, cols), (3, 3, 2, 0))
+    ctx = torch.zeros((S, stripe_rows, cols), dtype=torch.int16,
+                      device=bits.device)
+    for dr, dc, bit in _SCAB_TMPL[tmpl]:
+        ctx |= g[:, 2 + dr:2 + dr + stripe_rows, 3 + dc:3 + dc + cols] << bit
+    return ctx.reshape(S * stripe_rows, cols)[:rows]
+
+
+def scab_upload(img: np.ndarray, dev) -> torch.Tensor:
+    """The page uploaded as packed words and unpacked on `dev`: bool
+    [rows, cols]."""
+    return bitpack.unpack(_upload(img[None], 1, dev), img.shape[1])[0]
+
+
+def encode_scab(img: np.ndarray, params: CodecParams | None = None, *,
+                entropy: str = "host", device="cuda") -> bytes:
+    """Encode one page with codec 13, its context map on `device`.
+
+    entropy="host": the map is fetched and the native range coder codes it
+    (payload mode 1), byte-identical to ``codec.encode``.  entropy="device":
+    the whole mode-2 payload (static table and interleaved-rANS streams,
+    kernel K7) is built on the device and the host concatenates bytes."""
+    params = params or CodecParams(codec=SCAB_CODEC, W=0, T=0, R=0)
+    if params.codec != SCAB_CODEC:
+        raise ValueError(f"encode_scab takes codec 13, not {params.codec}")
+    if entropy not in ("host", "device"):
+        raise ValueError(f"entropy={entropy!r}: 'host' or 'device'")
+    img = np.asarray(img, dtype=bool)
+    tmpl, _, stripe_rows = scab_stripes(params, img.shape[0])
+    if entropy == "device":
+        return _encode_scab_device(img, params, tmpl, stripe_rows,
+                                   device=device)
+    bits = scab_upload(img, resolve_device(device))
+    ctx = scab_ctx_map(bits, tmpl=tmpl, stripe_rows=stripe_rows)
+    return _encode_scab(img, params,
+                        ctx_pre=ctx.cpu().numpy().view(np.uint16))
+
+
+def scab_rans_page(bits: torch.Tensor, *, tmpl: int, stripe_rows: int,
+                   n_lanes: int = ransdevice.N_LANES_DEFAULT) -> dict:
+    """Context map and the mode-2 payload's fields, on the device of
+    `bits` (``ransdevice.rans_page_encode``)."""
+    ctx = scab_ctx_map(bits, tmpl=tmpl, stripe_rows=stripe_rows)
+    return ransdevice.rans_page_encode(bits, ctx, stripe_rows=stripe_rows,
+                                       n_lanes=n_lanes)
+
+
+def fetch_rans_fields(out: dict) -> dict:
+    """The mode-2 fields on the host, in two copies: the small fields in
+    one int64 vector, then the word streams cut to the longest one."""
+    S, N = out["states"].shape
+    i64 = lambda t: t.reshape(-1).to(torch.int64)
+    small = torch.cat([i64(out["transmit"]), i64(out["q_default"]),
+                       bitpack.from_i32(out["states"]).reshape(-1),
+                       i64(out["bits"]), i64(out["tab_words"]),
+                       i64(out["tab_bits"]), i64(out["n_transmit"])])
+    parts = np.split(small.cpu().numpy(), np.cumsum(
+        [ransdevice.PSCALE, 1, S * N, S, ransdevice.TABLE_WORDS, 1]))
+    f = dict(transmit=parts[0].astype(bool), q_default=int(parts[1][0]),
+             states=parts[2].reshape(S, N), bits=parts[3],
+             tab_words=parts[4], tab_bits=int(parts[5][0]),
+             n_transmit=int(parts[6][0]))
+    nw_max = max(1, max(-(-int(b) // 32) for b in f["bits"]))
+    f["words"] = out["words"][:, :nw_max].cpu().numpy().view(np.uint32)
+    return f
+
+
+def _encode_scab_device(img, params, tmpl, stripe_rows,
+                        n_lanes: int | None = None, *, device="cuda") -> bytes:
+    """The mode-2 stream: the page uploaded to `device`, the payload's
+    fields built there (``scab_rans_page``), fetched, and serialized on the
+    host."""
+    rows, cols = img.shape
+    n_lanes = n_lanes or ransdevice.N_LANES_DEFAULT
+    bits = scab_upload(img, resolve_device(device))
+    f = fetch_rans_fields(scab_rans_page(bits, tmpl=tmpl,
+                                         stripe_rows=stripe_rows,
+                                         n_lanes=n_lanes))
+    body = _serialize_scab_rans(f, tmpl, -(-rows // stripe_rows),
+                                stripe_rows, n_lanes)
+    return _header(params, rows, cols, image_crc(img)) + body
+
+
+def _serialize_scab_rans(f: dict, tmpl, n_stripes, stripe_rows,
+                         n_lanes) -> bytes:
+    """The mode-2 body from the fetched fields (after the BIC1 header):
+
+      u8 tmpl | u8 mode=2 | u16 n_stripes | i32 stripe_rows
+      u8 n_lanes | u8 q_default | u16 n_transmit
+      u8 bitmap_mode (0 raw / 1 Rice gaps) | u8 rice_k | u16 bitmap_bytes
+      bitmap: the raw 512 B mask, or Rice(k) codes of the gaps between
+        transmitted context ids (g0 = id0, gi = id_i - id_{i-1} - 1)
+      ceil(n_transmit * 6 / 8) B probability codes (MSB-first)
+      u32 stripe_byte_len[n_stripes]
+      per stripe: n_lanes x u32 LE initial decoder states, then the u16
+        big-endian rANS word stream
+    """
+    ids = np.flatnonzero(np.asarray(f["transmit"], bool))
+    gaps = np.diff(np.concatenate([[-1], ids])) - 1
+    # Rice bits of the gaps for each k; the first smallest wins
+    nbits = [(k + 1) * gaps.size + int((gaps >> k).sum()) for k in range(13)]
+    best_k = int(np.argmin(nbits))
+    if ids.size and -(-nbits[best_k] // 8) < 512:
+        bm_mode, rice_k = 1, best_k
+        bw = BitWriter()
+        for g in gaps:
+            golomb_encode(bw, int(g), rice_k)
+        bm_bytes = bw.getvalue()
+    else:
+        bm_mode, rice_k = 0, 0
+        bm_bytes = np.packbits(np.asarray(f["transmit"], bool)).tobytes()
+    body = bytearray()
+    body += struct.pack("<BBHi", tmpl, 2, n_stripes, stripe_rows)
+    body += struct.pack("<BBH", n_lanes, int(f["q_default"]),
+                        int(f["n_transmit"]))
+    body += struct.pack("<BBH", bm_mode, rice_k, len(bm_bytes))
+    body += bm_bytes
+    body += words_to_bytes(f["tab_words"], int(f["tab_bits"]))
+    streams = [np.asarray(f["states"][s], "<u4").tobytes()
+               + words_to_bytes(f["words"][s], int(f["bits"][s]))
+               for s in range(n_stripes)]
+    for sb in streams:
+        body += struct.pack("<I", len(sb))
+    for sb in streams:
+        body += sb
+    return bytes(body)

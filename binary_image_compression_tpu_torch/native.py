@@ -2,9 +2,12 @@
 
 Counterpart of ``binary_image_compression_tpu/native.py``, bound to the same
 source file but built into ``build/native/`` so the reference package's own
-library is left alone.  Only the four entry points the codec-8 causal path
-needs are bound.  Unlike the reference bridge there is no pure-Python
-fallback: a failed build, load or call raises.
+library is left alone.  Bound: the codec-8 entry points (record packer,
+windowed decoder and host encoder, enumerative widths) and codec 13's
+(``bic_scab_encode``, ``bic_scab_decode``, ``bic_scab_rans_decode``).
+Unlike the reference bridge there is no pure-Python fallback: a failed
+build, load or call raises, and a decoder that rejects its stream raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -71,6 +74,17 @@ def _declare(lib) -> None:
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_long]
+    lib.bic_scab_encode.restype = ctypes.c_long
+    lib.bic_scab_encode.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint16), ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_long]
+    for name in ("bic_scab_decode", "bic_scab_rans_decode"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
+                       ctypes.c_int, ctypes.POINTER(ctypes.c_uint8)]
 
 
 def _p(arr, ctype):
@@ -133,3 +147,49 @@ def encode_windowed(img: np.ndarray, header: bytes, codec_id: int,
     if n <= 0:
         raise RuntimeError(f"bic_encode_windowed failed (rc={n})")
     return out[:n].tobytes()
+
+
+def scab_encode(img_u8: np.ndarray, tmpl: int, n_stripes: int, *,
+                ramp: bool = True, ctx_pre: np.ndarray | None = None
+                ) -> bytes:
+    """Codec-13 mode-0/1 payload (``bic_scab_encode``): stripe-parallel
+    context-adaptive range coding.  ctx_pre, uint16 [rows, cols], is a
+    precomputed context map (``compress.scab_ctx_map``); it must equal
+    the coder's own scan."""
+    lib = get_lib()
+    img_u8 = np.ascontiguousarray(img_u8, dtype=np.uint8)
+    rows, cols = img_u8.shape
+    cp = None
+    if ctx_pre is not None:
+        ctx_pre = np.ascontiguousarray(ctx_pre, dtype=np.uint16)
+        if ctx_pre.shape != (rows, cols):
+            raise ValueError(f"ctx_pre is {ctx_pre.shape}, the page "
+                             f"{(rows, cols)}")
+        cp = _p(ctx_pre, ctypes.c_uint16)
+    cap = rows * cols + 4 * n_stripes + 4096
+    out = np.zeros(cap, dtype=np.uint8)
+    n = lib.bic_scab_encode(_p(img_u8, ctypes.c_uint8), rows, cols, tmpl,
+                            n_stripes, int(ramp), cp, _p(out, ctypes.c_uint8),
+                            cap)
+    if n < 0:
+        raise RuntimeError(f"bic_scab_encode failed (rc={n})")
+    return out[:n].tobytes()
+
+
+def _scab_decode(name: str, body: bytes, rows: int, cols: int) -> np.ndarray:
+    out = np.zeros(rows * cols, dtype=np.uint8)
+    rc = getattr(get_lib(), name)(body, len(body), rows, cols,
+                                  _p(out, ctypes.c_uint8))
+    if rc != 0:
+        raise ValueError(f"{name} rejected the codec-13 payload (rc={rc})")
+    return out.reshape(rows, cols).astype(bool)
+
+
+def scab_decode(body: bytes, rows: int, cols: int) -> np.ndarray:
+    """Decode a codec-13 mode-0/1 payload (``bic_scab_decode``)."""
+    return _scab_decode("bic_scab_decode", body, rows, cols)
+
+
+def scab_rans_decode(body: bytes, rows: int, cols: int) -> np.ndarray:
+    """Decode a codec-13 mode-2 payload (``bic_scab_rans_decode``)."""
+    return _scab_decode("bic_scab_rans_decode", body, rows, cols)

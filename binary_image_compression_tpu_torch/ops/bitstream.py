@@ -3,9 +3,11 @@
 Counterpart of ``binary_image_compression_tpu/ops/bitstream.py``
 (``BitWriter``, ``BitReader``, ``golomb_encode``, ``golomb_decode``,
 ``_binom_table``, ``enum_nbits``, ``enum_rank``, ``enum_unrank``,
-``enum_encode``, ``enum_decode``).  Pure Python: the plain version of the
-native record packer (``models/compress.pack_records_plain``) and the
-codec-11 stream writer and reader (``models/codec``).
+``enum_encode``, ``enum_decode``, ``pack_varlen``, ``words_to_bytes``).
+The bit IO is pure Python: the plain version of the native record packer
+(``models/compress.pack_records_plain``) and the codec-11 stream writer and
+reader (``models/codec``).  ``pack_varlen`` packs variable-length codes in
+torch ops: codec 13's table section on the device.
 """
 
 from __future__ import annotations
@@ -13,6 +15,9 @@ from __future__ import annotations
 from functools import lru_cache
 
 import numpy as np
+import torch
+
+U32 = 0xFFFFFFFF
 
 
 class BitWriter:
@@ -165,3 +170,43 @@ def enum_decode(r: BitReader, n: int, weight: int) -> np.ndarray:
     if weight:
         bits[enum_unrank(rank, n, weight)] = True
     return bits
+
+
+def pack_varlen(values: torch.Tensor, lengths: torch.Tensor,
+                total_words: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Variable-length codes of up to 32 bits, back to back, MSB-first, in
+    32-bit words (JAX ``bitstream.pack_varlen`` :198), over the last dim.
+
+    values[..., i] holds lengths[..., i] significant bits (right-aligned),
+    both int64.  Returns (words int64 [..., total_words] of uint32 values,
+    total_bits int64 [...]).  Offsets come from an exclusive cumsum; a code
+    straddles at most two words, so the packing is two ``scatter_add_``
+    (codes never overlap, so add is OR).  As in JAX, a head past the last
+    word is dropped and a tail past it lands in the last word."""
+    values = values.to(torch.int64)
+    lengths = lengths.to(torch.int64)
+    starts = torch.cumsum(lengths, dim=-1) - lengths     # exclusive prefix
+    total_bits = lengths.sum(dim=-1)
+    word_idx = starts // 32
+    bit_in = starts % 32
+    mask = torch.where(lengths >= 32, U32,
+                       (1 << torch.clamp(lengths, max=31)) - 1)
+    v = values & mask
+    end = bit_in + lengths                  # <= 63: bit_in <= 31, len <= 32
+    hi = torch.where(end <= 32, v << torch.clamp(32 - end, 0, 31),
+                     v >> torch.clamp(end - 32, 0, 31)) & U32
+    lo = torch.where(end <= 32, 0, v << torch.clamp(64 - end, 0, 31)) & U32
+    words = torch.zeros(values.shape[:-1] + (total_words + 1,),
+                        dtype=torch.int64, device=values.device)
+    # heads past the last word go to the spare slot, which is then dropped
+    words.scatter_add_(-1, torch.clamp(word_idx, max=total_words), hi)
+    words.scatter_add_(-1, torch.clamp(word_idx + 1, max=total_words - 1),
+                       lo)
+    return words[..., :total_words], total_bits
+
+
+def words_to_bytes(words: np.ndarray, total_bits: int) -> bytes:
+    """Big-endian bytes of a uint32 word stream, trimmed to
+    ceil(total_bits / 8) (JAX ``bitstream.words_to_bytes`` :234)."""
+    words = np.asarray(words, dtype=np.uint32)
+    return words.astype(">u4").tobytes()[: (int(total_bits) + 7) // 8]

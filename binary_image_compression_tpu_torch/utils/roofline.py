@@ -27,6 +27,12 @@ chip_smoke measures it on the card.
 
 The BSVD pursuit's work depends on the data: ``pursuit_work`` takes the
 distance passes the rows took (the kernel counts them per row).
+
+K7, codec 13's interleaved-rANS encode, is a chain per lane as well: each
+lane's steps depend on the one before.  ``rans_work`` gives its bytes and
+its chain floor, the steps times the least latency of one step's
+dependent instructions on one lane (``RANS_STEP_DEPENDENT_OPS`` of them,
+``ALU_DEPENDENT_CLOCKS`` each, at the boost clock).
 """
 
 from __future__ import annotations
@@ -36,6 +42,16 @@ H100_CLOCK_HZ = 1.98e9
 H100_POPC_PER_S = 132 * 16 * 1.98e9
 H100_SM_POPC_PER_S = 16 * 1.98e9
 H100_HBM_BYTES_PER_S = 3.35e12
+# clocks from issuing an integer ALU or IMAD instruction to issuing one that
+# reads its result: 4 on Volta-class and later SMs (Jia et al. 2018,
+# "Dissecting the NVIDIA Volta GPU Architecture via Microbenchmarking")
+ALU_DEPENDENT_CLOCKS = 4
+# one rANS encode step's instructions on the state's dependent chain, with
+# everything that depends only on f (the divisor's reciprocal) off it:
+# shift and compare (need), select (renormalise), the divide's multiply-high,
+# multiply-subtract (remainder), compare and fix-up, then shift-add and add
+# (the new state)
+RANS_STEP_DEPENDENT_OPS = 10
 
 
 def bound_ms(*, popcounts: int = 0, nbytes: int = 0) -> tuple[float, str]:
@@ -148,3 +164,18 @@ def pursuit_work(passes: int, N: int, K: int, nw: int) -> tuple[int, int]:
     row's passes are its flips plus at most one that fails."""
     pops = passes * K * nw + N * nw
     return pops, 4 * (2 * N * nw + K * nw + N) + 2 * max(passes - N, 0)
+
+
+def rans_work(pixels: int, steps: int, S: int, N: int,
+              out_bytes: int | None = None) -> tuple[int, float]:
+    """K7 on S stripes of N lanes and `steps` steps: (bytes, chain floor in
+    ms).  Bytes: the page's bits (1 B a pixel) and contexts (2 B) read once,
+    the 8 KB table (4,096 u16) once, the states (4 B a lane) and the stream
+    written once: `out_bytes` where the run knows it, else at most 2 B a
+    pixel.  The chain floor: every lane walks all the steps, each at least
+    RANS_STEP_DEPENDENT_OPS x ALU_DEPENDENT_CLOCKS clocks."""
+    out = 2 * pixels if out_bytes is None else out_bytes
+    nbytes = 3 * pixels + 2 * 4096 + 4 * S * N + out
+    floor_ms = (steps * RANS_STEP_DEPENDENT_OPS * ALU_DEPENDENT_CLOCKS
+                / H100_CLOCK_HZ * 1e3)
+    return nbytes, floor_ms

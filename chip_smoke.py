@@ -5,10 +5,11 @@
 Builds the native host library and the CUDA kernels from this checkout,
 holds each kernel (K1's field plane and search, K2 decision, K3 strict
 analysis, K4's 64-bit field plane and banded search, K5 packed distances,
-K6 packed row weights, and the BSVD pursuit kernel that fuses K5 and K6,
-on planted inputs up to a letter page's 33,120 patches) against its plain
-PyTorch version on the card, then
-drives the port's four paths, each with
+K6 packed row weights, the BSVD pursuit kernel that fuses K5 and K6,
+on planted inputs up to a letter page's 33,120 patches, and K7, codec 13's
+interleaved-rANS encode, on every codec-13 case of the CPU tests and a
+letter page) against its plain PyTorch version on the card, then
+drives the port's five paths, each with
 the launch counts reset just before it and read just after: the causal
 encode (one 512x512 page, then a 64-page corpus through the archive
 writer), strict mode (``encode_strict`` on a 512x512 and a 512x2048
@@ -17,9 +18,14 @@ a 3300x2550 letter page at W = 64, with a spy showing that no distance map
 was built on the card) and BSVD
 (codec 11 on one page, ``learn`` on both distance routes, the ``bsvd`` CLI
 at K = 512, with a spy showing that each packed pursuit on the card was one
-launch of the pursuit kernel, with no K5 or K6 launch and no host sync).  Every codec-8 stream is checked byte for byte against the
-native host encoder, the codec-11 stream against the same encode on the
-CPU, and each is round-tripped; stages and kernels are timed with CUDA
+launch of the pursuit kernel, with no K5 or K6 launch and no host sync)
+and codec 13 (``encode_scab`` in both entropy modes on doc512 and the
+letter page, one K7 launch per device-entropy encode, with a spy showing
+that the plain rANS loop ran on no CUDA tensor).  Every codec-8 stream is
+checked byte for byte against the native host encoder, the codec-11 stream
+and codec 13's device-entropy streams against the same encode on the
+CPU, codec 13's host-entropy streams against the native coder's own
+context scan, and each is round-tripped; stages and kernels are timed with CUDA
 events (K1's, K2's, K3's and K4's kernels also by torch.profiler's device
 times; the W = 16 and W = 64 encodes split into stages),
 and each kernel's time is printed beside its least time on the card
@@ -1266,6 +1272,209 @@ def banded_times(compress, codec, sw, fs, bitpack, pnm, roofline, dev, gpu):
     return (k4, k4p, b4, None), (pl, plp, bpl, None)
 
 
+# (rows, cols, stripe_rows, n_lanes) of K7's random-table cases: pads at
+# the stripes' ends, a short last stripe, one row, fewer pixels than lanes,
+# part-filled warps, one lane and 255 lanes (8 warps)
+K7_RANDOM = [(64, 64, 32, 32), (75, 101, 19, 4), (75, 101, 38, 8),
+             (1, 7, 1, 32), (129, 67, 65, 64), (33, 65, 17, 33),
+             (50, 50, 25, 255), (96, 80, 96, 1)]
+SCAB_BYTES = {"host": 15097, "device": 14402}
+
+
+def k7_cases(codec, pnm) -> list:
+    """(name, page, params, n_lanes) of every codec-13 case of the CPU
+    tests (tests/test_torch_codec13.py): three fixtures at both templates
+    and T = 0, 2, 4, the edge geometries at T = 2, text64 at six lane
+    counts; then doc512 and the letter page at the defaults."""
+    fx = lambda n: pnm.read_pbm(os.path.join(FIXTURES, n))
+    P = lambda W=0, T=0: codec.CodecParams(codec=13, W=W, T=T, R=0)
+    cases = [(f"{n} W={W} T={T}", fx(n), P(W, T), 32)
+             for n in ("text256.pbm", "ragged75x101.pbm", "text64.pbm")
+             for W, T in ((10, 0), (12, 2), (12, 4), (0, 0))]
+    rng = np.random.RandomState(7)
+    edges = [np.zeros((33, 65), bool), np.ones((16, 16), bool),
+             rng.rand(1, 7) < 0.5, rng.rand(129, 67) < 0.93,
+             np.eye(50, dtype=bool)]
+    cases += [(f"edge {e.shape[0]}x{e.shape[1]} T=2", e, P(0, 2), 32)
+              for e in edges]
+    cases += [(f"text64.pbm T=2 n_lanes={nl}", fx("text64.pbm"), P(0, 2), nl)
+              for nl in (1, 4, 8, 33, 64, 255)]
+    doc = fx("doc512.pbm")
+    return cases + [("doc512", doc, P(), 32),
+                    ("letter 3300x2550", letter_page(doc), P(), 32)]
+
+
+def scab_inputs(compress, codec, rd, img, p, dev):
+    """K7's inputs for one page as the mode-2 path builds them on the card:
+    (bits, ctx, p_used) with a batch dim of 1, and the stripe height."""
+    tmpl, _, sr = codec.scab_stripes(p, img.shape[0])
+    bits = compress.scab_upload(img, dev)
+    ctx = compress.scab_ctx_map(bits, tmpl=tmpl, stripe_rows=sr)
+    p_used = rd.build_table(*rd.count_contexts(ctx, bits))[3]
+    return (bits[None], ctx[None], p_used.to(torch.int16)[None]), sr
+
+
+def check_k7(rd, compress, codec, pnm, dev) -> int:
+    """K7 == ``rans_stripes_plain`` (the reverse loop and pack_varlen) on
+    the same CUDA tensors: random tables on two pages at K7_RANDOM's
+    geometries, then every codec-13 case with the table its page builds on
+    the card.  States, stream words and bit counts exact.  Returns the
+    worst error."""
+    worst = 0
+
+    def one(name, a, sr, nl):
+        got = rd._launch(*a, stripe_rows=sr, n_lanes=nl)
+        want = rd.rans_stripes_plain(*a, stripe_rows=sr, n_lanes=nl)
+        torch.cuda.synchronize()
+        err = max(0 if torch.equal(g, w) else
+                  int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got, want))
+        B, rows, cols = a[0].shape
+        S, steps, _ = rd.stripe_geometry(rows, cols, sr, nl)
+        log(f"K7 {name}: B={B} {rows}x{cols} S={S} N={nl} steps={steps} "
+            f"stream {int(got[2].sum()) // 8} B max_abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"K7 disagrees with its plain version on "
+                                 f"{name}")
+        return err
+
+    for rows, cols, sr, nl in K7_RANDOM:
+        rs = np.random.RandomState(rows * cols + nl)
+        bits = torch.from_numpy(rs.rand(2, rows, cols) < 0.3).to(dev)
+        ctx = torch.stack([compress.scab_ctx_map(b, tmpl=12, stripe_rows=sr)
+                           for b in bits])
+        p_used = torch.from_numpy(
+            rs.randint(1, 4096, (2, 4096)).astype(np.int16)).to(dev)
+        worst = max(worst, one("random table", (bits, ctx, p_used), sr, nl))
+    for name, img, p, nl in k7_cases(codec, pnm):
+        a, sr = scab_inputs(compress, codec, rd, img, p, dev)
+        worst = max(worst, one(name, a, sr, nl))
+    return worst
+
+
+def scab_path(compress, codec, pnm):
+    """Codec 13 as a user calls it: ``encode_scab`` on the card in both
+    entropy modes, on doc512 and the letter page.  Mode 1 == ``codec.encode``
+    (the native coder's own context scan), mode 2 == the CPU port's stream;
+    both decode to the page through the native decoders."""
+    doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
+    p = codec.CodecParams(codec=13, W=0, T=0, R=0)
+    for name, img in (("doc512", doc), ("letter 3300x2550", letter_page(doc))):
+        for entropy in ("host", "device"):
+            t0 = time.perf_counter()
+            blob = compress.encode_scab(img, p, entropy=entropy,
+                                        device="cuda")
+            t = time.perf_counter() - t0
+            if entropy == "host":
+                ref, what = codec.encode(img, p), "codec.encode"
+            else:
+                ref, what = compress.encode_scab(
+                    img, p, entropy="device", device="cpu"), "the CPU port"
+            if blob != ref:
+                raise AssertionError(f"codec 13 {name} ({entropy}) != "
+                                     f"{what}")
+            if name == "doc512" and len(blob) != SCAB_BYTES[entropy]:
+                raise AssertionError(f"codec 13 doc512 ({entropy}) is "
+                                     f"{len(blob)} B, not "
+                                     f"{SCAB_BYTES[entropy]}")
+            if not np.array_equal(codec.decode(blob), img):
+                raise AssertionError(f"codec 13 {name} ({entropy}) does not "
+                                     f"decode to the page")
+            log(f"codec 13: {name} entropy={entropy} -> {len(blob)} B, == "
+                f"{what}, decodes ({t * 1e3:.1f} ms wall, first call)")
+
+
+def no_plain_rans_on_card(rd, fn):
+    """Run fn() with a spy on ``rans_encode_plain`` (K7's plain loop); fail
+    if it was called on a CUDA tensor."""
+    orig, devices = rd.rans_encode_plain, []
+
+    def spy(f, b):
+        devices.append(f.device.type)
+        return orig(f, b)
+    rd.rans_encode_plain = spy
+    try:
+        fn()
+    finally:
+        rd.rans_encode_plain = orig
+    log(f"scab path: rans_encode_plain called {len(devices)} times, on "
+        f"{sorted(set(devices)) or 'no device'}")
+    if "cuda" in devices:
+        raise AssertionError("the plain rANS loop ran on the card")
+
+
+def scab_times(compress, codec, rd, bitpack, pnm, roofline, dev, gpu):
+    """Codec 13 on doc512 and the letter page: the mode-2 stages (CUDA
+    events on the card, the host clock for upload, fetch and serialize),
+    the host-entropy stages, ``encode_scab`` end to end in both modes, and
+    K7 by events and torch.profiler beside its bound, its chain floor and
+    its plain version.  Returns doc512's kernels-line figures."""
+    doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
+    p = codec.CodecParams(codec=13, W=0, T=0, R=0)
+    figures = {}
+    for name, img, reps in (("doc512", doc, 5),
+                            ("letter 3300x2550", letter_page(doc), 3)):
+        rows, cols = img.shape
+        tmpl, S, sr = codec.scab_stripes(p, rows)
+        st = {}
+        st["upload"] = host_ms(lambda: compress._upload(img[None], 1, dev),
+                               reps)
+        packed = compress._upload(img[None], 1, dev)
+        st["unpack"] = cuda_ms(lambda: bitpack.unpack(packed, cols), reps)
+        bits = bitpack.unpack(packed, cols)[0]
+        cmap = lambda: compress.scab_ctx_map(bits, tmpl=tmpl, stripe_rows=sr)
+        st["context map"] = cuda_ms(cmap, reps)
+        ctx = cmap()
+        st["counts"] = cuda_ms(lambda: rd.count_contexts(ctx, bits), reps)
+        ones, total = rd.count_contexts(ctx, bits)
+        st["table"] = cuda_ms(lambda: rd.build_table(ones, total), reps)
+        q, transmit, _, p_used = rd.build_table(ones, total)
+        a = (bits[None], ctx[None], p_used.to(torch.int16)[None])
+        k7 = lambda: rd.rans_encode(*a, stripe_rows=sr)
+        st["K7"] = cuda_ms(k7, reps)
+        st["table pack"] = cuda_ms(lambda: rd.pack_table(q, transmit), reps)
+        res = compress.scab_rans_page(bits, tmpl=tmpl, stripe_rows=sr)
+        st["fetch"] = host_ms(lambda: compress.fetch_rans_fields(res), reps)
+        f = compress.fetch_rans_fields(res)
+        st["serialize (+ header, CRC)"] = host_ms(
+            lambda: codec._header(p, rows, cols, codec.image_crc(img))
+            + compress._serialize_scab_rans(f, tmpl, S, sr, 32), reps)
+        st["end to end (encode_scab, device entropy)"] = host_ms(
+            lambda: compress.encode_scab(img, p, entropy="device",
+                                         device="cuda"), reps)
+        log(f"codec 13 mode-2 stages, {name} [{gpu}]: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in st.items()))
+        h = {}
+        h["upload + unpack + map"] = host_ms(
+            lambda: compress.scab_ctx_map(compress.scab_upload(img, dev),
+                                          tmpl=tmpl, stripe_rows=sr), reps)
+        h["map fetch"] = host_ms(lambda: ctx.cpu().numpy(), reps)
+        cnp = ctx.cpu().numpy().view(np.uint16)
+        h["native coder"] = host_ms(
+            lambda: codec._encode_scab(img, p, ctx_pre=cnp), reps)
+        h["end to end (encode_scab, host entropy)"] = host_ms(
+            lambda: compress.encode_scab(img, p, device="cuda"), reps)
+        h["codec.encode (native scan, no card)"] = host_ms(
+            lambda: codec.encode(img, p), reps)
+        log(f"codec 13 mode-1 stages, {name} [{gpu}]: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in h.items()))
+
+        ms = cuda_ms(k7, 20)
+        dk7 = device_ms(k7, "rans_encode_kernel", 10)
+        plain = cuda_ms(lambda: rd.rans_stripes_plain(*a, stripe_rows=sr), 1)
+        _, steps, _ = rd.stripe_geometry(rows, cols, sr, 32)
+        nbytes, floor = roofline.rans_work(rows * cols, steps, S, 32,
+                                           int(res["bits"].sum()) // 8)
+        bound = roofline.bound_ms(nbytes=nbytes)
+        ratio = "" if dk7 is None else f", device {dk7 / floor:.2f}x the floor"
+        log(f"K7 {name}: {ms:.4f} ms per launch (CUDA events), device "
+            f"{nd(dk7)} (torch.profiler, mean of 10); bound {bound[0]:.6f} "
+            f"ms ({bound[1]}), chain floor {floor:.4f} ms ({S} stripes x 32 "
+            f"lanes, {steps} steps){ratio}; plain {plain:.3f} ms [{gpu}]")
+        figures[name] = (ms, plain, bound, None)
+    return figures["doc512"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -1278,6 +1487,7 @@ def main() -> int:
     from binary_image_compression_tpu_torch.ops import decide as dc
     from binary_image_compression_tpu_torch.ops import fused_search as fs
     from binary_image_compression_tpu_torch.ops import packed_dist as pd
+    from binary_image_compression_tpu_torch.ops import ransdevice as rd
     from binary_image_compression_tpu_torch.ops import search
     from binary_image_compression_tpu_torch.ops import select_windows as sw
     from binary_image_compression_tpu_torch.ops import strict as st
@@ -1311,6 +1521,7 @@ def main() -> int:
     err5 = check_k5(pd, bsvd, dev)
     err6 = check_k6(pd, bsvd, dev)
     err_p, letter = check_pursuit(pd, bsvd, dev)
+    err7 = check_k7(rd, compress, codec, pnm, dev)
 
     causal = drive("causal", lambda: main_path(compress, archive, codec,
                                                native, pnm),
@@ -1327,6 +1538,11 @@ def main() -> int:
                    _cuda, ("packed_pursuit",))
     if bsvd_c.get("packed_dist_matrix") or bsvd_c.get("packed_row_weight"):
         raise AssertionError("K5 or K6 ran on the bsvd path")
+    scab = drive("scab", lambda: no_plain_rans_on_card(
+        rd, lambda: scab_path(compress, codec, pnm)), _cuda, ("rans_encode",))
+    if scab["rans_encode"] != 2:
+        raise AssertionError(f"{scab['rans_encode']} rans_encode launches "
+                             f"for 2 mode-2 encodes")
 
     img, _, out = stage_times(compress, fs, bitpack, codec, pnm, dev, gpu)
     kt = kernel_times(compress, fs, dc, roofline, img, out, serial, dev,
@@ -1335,6 +1551,7 @@ def main() -> int:
         compress, codec, st, sw, fs, bitpack, pnm, roofline, dev, gpu)
     k5, k5p, k6, k6p, lib5, lib6, pur = bsvd_times(codec, bsvd, pd, pnm,
                                                    roofline, letter, dev, gpu)
+    k7t = scab_times(compress, codec, rd, bitpack, pnm, roofline, dev, gpu)
     pops5, bytes5 = roofline.k5_work(1024, 64, 8)
     pops6, bytes6 = roofline.k6_work(1024, 8)
     b5 = roofline.bound_ms(popcounts=pops5, nbytes=bytes5)
@@ -1368,6 +1585,8 @@ def main() -> int:
         entry("packed_pursuit", "packed_pursuit.cuh",
               "pallas_kernels.py:45 and :728", bsvd_c["packed_pursuit"],
               err_p, pur[0], pur[2], pur[3], None),
+        entry("rans_encode", "rans_encode.cu", "ransdevice.py:167",
+              scab["rans_encode"], err7, *k7t),
     ]
     log(json.dumps({"kernels": kernels}))
     log(card())

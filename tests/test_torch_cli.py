@@ -50,13 +50,58 @@ def test_cli_archive_extract(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--codec", "13"], "item 7"), (["--codec", "7"], "item 12"),
-    (["--codec", "4"], "item 12")])
+    (["--codec", "12"], "item 5"), (["--codec", "7"], "item 4"),
+    (["--codec", "4"], "item 4")])
 def test_cli_unported_options_name_the_roadmap_item(tmp_path, argv, item):
     src = os.path.join(FIX, "text64.pbm")
     with pytest.raises(SystemExit, match=item):
         cli.main(["compress", src, str(tmp_path / "a.bic"), *argv,
                   "--device", "cpu"])
+
+
+@pytest.mark.parametrize("argv", [["--codec", "13"],
+                                  ["--codec", "13", "--entropy", "device"],
+                                  ["--codec", "13", "-W", "10", "-T", "2"]])
+def test_cli_codec13_round_trip(tmp_path, capsys, argv):
+    """compress --codec 13 (host or device entropy) writes the JAX
+    package's stream; decompress gives the page back."""
+    from binary_image_compression_tpu.models import compress as jcompress
+    src = os.path.join(FIX, "text64.pbm")
+    bic, out = str(tmp_path / "a.bic"), str(tmp_path / "b.pbm")
+    cli.main(["compress", src, bic, *argv, "--device", "cpu"])
+    assert "codec 13" in capsys.readouterr().out
+    img = pnm.read_pbm(src)
+    W = int(argv[argv.index("-W") + 1]) if "-W" in argv else 16
+    T = int(argv[argv.index("-T") + 1]) if "-T" in argv else None
+    jp = jcodec.CodecParams(codec=13, W=W, T=T, R=128, strict=False)
+    want = (jcompress.encode_scab(img, jp, entropy="device")
+            if "device" in argv else jcodec.encode(img, jp))
+    with open(bic, "rb") as f:
+        assert f.read() == want
+    cli.main(["decompress", bic, out])
+    with open(src, "rb") as f1, open(out, "rb") as f2:
+        assert f1.read() == f2.read()
+
+
+@pytest.mark.parametrize("name,mode", [("text64.pbm", "causal"),
+                                       ("noise96x80.pbm", "causal"),
+                                       ("text64.pbm", "strict")])
+def test_cli_codec_auto_keeps_the_smaller(tmp_path, capsys, name, mode):
+    """--codec auto: the smaller of JAX's codec-13 and codec-8 streams."""
+    src = os.path.join(FIX, name)
+    bic = str(tmp_path / "a.bic")
+    cli.main(["compress", src, bic, "--codec", "auto", "-W", "8", "-R", "32",
+              "--mode", mode, "--device", "cpu"])
+    img = pnm.read_pbm(src)
+    want = min((jcodec.encode(img, jcodec.CodecParams(codec=13, W=0, T=0,
+                                                      R=0)),
+                jcodec.encode(img, jcodec.CodecParams(
+                    codec=8, W=8, R=32, strict=mode == "strict"))), key=len)
+    with open(bic, "rb") as f:
+        blob = f.read()
+    assert blob == want
+    assert f"codec {want[8]}" in capsys.readouterr().out
+    np.testing.assert_array_equal(jcodec.decode(blob), img)
 
 
 def _port_modules():

@@ -123,7 +123,7 @@ def test_r_less_than_w_routes_to_host_encoder():
 
 def test_unported_params_and_devices_raise():
     img = np.zeros((32, 32), dtype=bool)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         compress.encode(img, codec.CodecParams(codec=7, strict=False),
                         device="cpu")
     with pytest.raises(ValueError, match="encode_strict"):

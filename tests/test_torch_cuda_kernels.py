@@ -1,7 +1,8 @@
-"""K1-K6 and the BSVD pursuit kernel on the card against their plain
+"""K1-K7 and the BSVD pursuit kernel on the card against their plain
 PyTorch versions, the port's
 causal and strict encodes on the card against the native host encoder, and
-codec 11 and BSVD learning on the card against the CPU run.
+codec 11, codec 13 (both payload modes) and BSVD learning on the card
+against the CPU run.
 
 Needs an NVIDIA GPU with nvcc (marked ``cuda``; skipped without one).  The
 file imports no JAX, so on a machine without JAX it runs on its own:
@@ -20,7 +21,7 @@ from binary_image_compression_tpu_torch.models import bsvd, codec, compress
 from binary_image_compression_tpu_torch.ops import _cuda
 from binary_image_compression_tpu_torch.ops import decide as dc
 from binary_image_compression_tpu_torch.ops import fused_search as fs
-from binary_image_compression_tpu_torch.ops import packed_dist
+from binary_image_compression_tpu_torch.ops import packed_dist, ransdevice
 from binary_image_compression_tpu_torch.ops import search
 from binary_image_compression_tpu_torch.ops import select_windows as sw
 from binary_image_compression_tpu_torch.ops import strict
@@ -366,3 +367,42 @@ def test_bsvd_learn_on_card_matches_cpu(dev, distances):
     for g, w in zip(got[:3], want[:3]):
         assert torch.equal(g.cpu(), w)
     assert got[3] == want[3]
+
+
+# (rows, cols, stripe_rows, n_lanes): pads at the stripes' ends, a short
+# last stripe, one row, fewer pixels than lanes, part-filled warps, one
+# lane and 255 lanes (8 warps)
+K7_CASES = [(64, 64, 32, 32), (75, 101, 19, 4), (75, 101, 38, 8),
+            (1, 7, 1, 32), (129, 67, 65, 64), (33, 65, 17, 33),
+            (50, 50, 25, 255), (96, 80, 96, 1)]
+
+
+@pytest.mark.parametrize("rows,cols,sr,n_lanes", K7_CASES)
+def test_k7_kernel_matches_plain(dev, rows, cols, sr, n_lanes):
+    rs = np.random.RandomState(rows * cols + n_lanes)
+    bits = torch.from_numpy(rs.rand(2, rows, cols) < 0.3).to(dev)
+    ctx = torch.stack([compress.scab_ctx_map(b, tmpl=12, stripe_rows=sr)
+                       for b in bits])
+    p_used = torch.from_numpy(
+        rs.randint(1, 4096, (2, 4096)).astype(np.int16)).to(dev)
+    before = _cuda.launches["rans_encode"]
+    got = ransdevice.rans_encode(bits, ctx, p_used, stripe_rows=sr,
+                                 n_lanes=n_lanes)
+    assert _cuda.launches["rans_encode"] == before + 1
+    want = ransdevice.rans_stripes_plain(bits, ctx, p_used, stripe_rows=sr,
+                                         n_lanes=n_lanes)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("entropy", ["host", "device"])
+@pytest.mark.parametrize("name,T", [("doc512.pbm", 0), ("text64.pbm", 2),
+                                    ("ragged75x101.pbm", 4)])
+def test_codec13_on_card_matches_cpu(dev, name, T, entropy):
+    img = pnm.read_pbm(os.path.join(FIX, name))
+    p = codec.CodecParams(codec=13, W=0, T=T, R=0)
+    got = compress.encode_scab(img, p, entropy=entropy, device="cuda")
+    assert got == compress.encode_scab(img, p, entropy=entropy,
+                                       device="cpu")
+    np.testing.assert_array_equal(codec.decode(got), img)

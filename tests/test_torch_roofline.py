@@ -165,3 +165,25 @@ def test_k4_work(rows, cols, W, R, B, pops, by):
     ny, nx = -(-rows // W), -(-cols // W)
     He = fused_search.plane_height(ny * W, W, R)
     assert nbytes == 8 * B * He * nx * W + 4 * B * ny * nx * 8
+
+
+def test_rans_work_doc512_and_letter_page():
+    """K7's geometry, bytes and chain floor: doc512 (4 stripes of 128 rows,
+    32 lanes, 2,048 steps) and a 3300 x 2550 letter page (16 stripes of
+    207 rows, 16,496 steps)."""
+    from binary_image_compression_tpu_torch.models import codec
+    from binary_image_compression_tpu_torch.ops import ransdevice
+    p = codec.CodecParams(codec=13, W=0, T=0, R=0)
+    for rows, cols, sr, steps in ((512, 512, 128, 2048),
+                                  (3300, 2550, 207, 16496)):
+        tmpl, S, stripe_rows = codec.scab_stripes(p, rows)
+        assert (tmpl, stripe_rows) == (12, sr)
+        assert ransdevice.stripe_geometry(rows, cols, sr, 32) == (
+            S, steps, steps * 16)
+    nbytes, floor = roofline.rans_work(512 * 512, 2048, 4, 32)
+    assert nbytes == 3 * 262144 + 8192 + 512 + 2 * 262144
+    assert roofline.rans_work(512 * 512, 2048, 4, 32, 14000)[0] == \
+        3 * 262144 + 8192 + 512 + 14000
+    assert floor == pytest.approx(2048 * 40 / 1.98e9 * 1e3)
+    assert roofline.rans_work(3300 * 2550, 16496, 16, 32)[1] == \
+        pytest.approx(8.0547 * floor, rel=1e-4)
