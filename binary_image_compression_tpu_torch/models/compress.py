@@ -58,6 +58,7 @@ from .codec import (SCAB_CODEC, CodecParams, _check_W, _encode_scab, _header,
 # pages the native host encoder took: causal R < W, strict shapes outside
 # strict.supported, strict archive pages (not a device launch)
 host_route = collections.Counter()
+WINDOWED_CODECS = (4, 6, 7, 8)      # what native.encode_windowed writes
 
 
 def _check_causal8(params):
@@ -300,7 +301,12 @@ def _decide_modes(out: dict, M: int, codec_id: int = 8):
 def host_encode(img: np.ndarray, params: CodecParams) -> bytes:
     """The native host encoder, for the shapes the device paths leave to
     it: causal R < W (the device band covers grid-1 rows only for R >= W)
-    and strict shapes outside ``strict.supported``."""
+    and strict shapes outside ``strict.supported``.  It writes the windowed
+    codecs 4/6/7/8 only: another codec id would head a windowed payload
+    that no decoder reads."""
+    if params.codec not in WINDOWED_CODECS:
+        raise ValueError(f"codec {params.codec}: the native windowed "
+                         f"encoder writes codecs 4/6/7/8 only")
     host_route["pages"] += 1
     hdr = _header(params, *img.shape, image_crc(img))
     return native.encode_windowed(img, hdr, params.codec, params.strict,

@@ -15,11 +15,18 @@ A padding symbol with f = 4096, b = 0 is an exact no-op: it pads stripes
 to a whole number of steps, and the decoder never reads it.
 
 ``rans_encode`` is kernel K7 (``csrc/rans_encode.cu``, note at its top):
-one CUDA block per stripe walks the steps backwards and writes each
-stripe's word stream itself.  For CPU tensors it runs ``rans_stripes_plain``:
-the per-pixel (f, b) in the stripe layout, the reverse loop
-``rans_encode_plain`` (JAX ``rans_encode_scan`` without its unroll) and
-``bitstream.pack_varlen`` of the emitted words in stream order.
+one CUDA block per stripe, whose chain warps walk the steps backwards with
+the state update alone on each lane's dependent line (producer warps stage
+the inputs, the divide is a multiply-high by ``div_magic``'s constants, a
+lane stores its words at their (step, lane) slots and flags them), then
+the block writes the stripe's word stream in order.  For CPU tensors it
+runs ``rans_stripes_plain``: the per-pixel (f, b) in the stripe layout,
+the reverse loop ``rans_encode_plain`` (JAX ``rans_encode_scan`` without
+its unroll) and ``bitstream.pack_varlen`` of the emitted words in stream
+order.  The kernel's two new pieces of arithmetic have plain twins that
+the CPU tests hold against those: ``div_magic`` (the divisor constants)
+and ``stream_order_plain`` (its stream-order pass, over the flag words
+``step_flag_words`` packs).
 
 The context counts are one integer ``torch.bincount`` (JAX's MXU one-hot
 histogram and its 2^24 float32 bound are a TPU workaround), and the table
@@ -35,6 +42,7 @@ import numpy as np
 import torch
 
 from . import _cuda, bitpack
+from .bitpack import U32, popcount
 from .bitstream import pack_varlen
 
 PROB_BITS = 12                      # freqs sum to 4096
@@ -154,6 +162,22 @@ def _to_stripes(a: torch.Tensor, pad, n_stripes, stripe_rows, steps, N):
     return a.reshape(B * n_stripes, steps, N).transpose(0, 1)
 
 
+def _stripe_loop(bits, ctx, p_used, stripe_rows: int, n_lanes: int):
+    """The reverse loop over every stripe of a batch of pages:
+    ``rans_encode_plain`` of the per-pixel (f, b) in the stripe layout
+    (states, words and flags over [steps, B * S, N])."""
+    B, rows, cols = bits.shape
+    S, steps, _ = stripe_geometry(rows, cols, stripe_rows, n_lanes)
+    b64 = bits.to(torch.int64)
+    p1 = torch.stack([table_lookup(t.to(torch.int64), c)
+                      for t, c in zip(p_used, ctx)])
+    f0 = PSCALE - p1
+    f_px = torch.where(b64 == 1, p1, f0)
+    b_px = torch.where(b64 == 1, f0, 0)
+    lay = lambda a, pad: _to_stripes(a, pad, S, stripe_rows, steps, n_lanes)
+    return rans_encode_plain(lay(f_px, PSCALE), lay(b_px, 0))
+
+
 def rans_stripes_plain(bits, ctx, p_used, *, stripe_rows: int,
                        n_lanes: int = N_LANES_DEFAULT):
     """Plain PyTorch K7: every stripe of a batch of pages coded at once.
@@ -165,20 +189,136 @@ def rans_stripes_plain(bits, ctx, p_used, *, stripe_rows: int,
     words (uint32 bit patterns, zero past its end) and its length in bits."""
     B, rows, cols = bits.shape
     S, steps, wcap = stripe_geometry(rows, cols, stripe_rows, n_lanes)
-    b64 = bits.to(torch.int64)
-    p1 = torch.stack([table_lookup(t.to(torch.int64), c)
-                      for t, c in zip(p_used, ctx)])
-    f0 = PSCALE - p1
-    f_px = torch.where(b64 == 1, p1, f0)
-    b_px = torch.where(b64 == 1, f0, 0)
-    lay = lambda a, pad: _to_stripes(a, pad, S, stripe_rows, steps, n_lanes)
-    states, words, flags = rans_encode_plain(lay(f_px, PSCALE), lay(b_px, 0))
+    states, words, flags = _stripe_loop(bits, ctx, p_used, stripe_rows,
+                                        n_lanes)
     # stream order: ascending (step, lane) within each stripe
     wv = words.transpose(0, 1).reshape(B * S, steps * n_lanes)
     fv = flags.transpose(0, 1).reshape(B * S, steps * n_lanes)
     sw, sb = pack_varlen(wv, fv.to(torch.int64) * 16, wcap)
     return (bitpack.to_i32(states).reshape(B, S, n_lanes),
             bitpack.to_i32(sw).reshape(B, S, wcap), sb.reshape(B, S))
+
+
+def rans_stripes_twin(bits, ctx, p_used, *, stripe_rows: int,
+                      n_lanes: int = N_LANES_DEFAULT):
+    """``rans_stripes_plain`` with the kernel's stream-order pass in place
+    of ``pack_varlen``: the plain loop's words and flags through
+    ``step_flag_words`` and ``stream_order_plain``.  Same outputs."""
+    B, rows, cols = bits.shape
+    S, _, wcap = stripe_geometry(rows, cols, stripe_rows, n_lanes)
+    states, words, flags = _stripe_loop(bits, ctx, p_used, stripe_rows,
+                                        n_lanes)
+    sw, sb = stream_order_plain(words.transpose(0, 1),
+                                step_flag_words(flags))
+    return (bitpack.to_i32(states).reshape(B, S, n_lanes),
+            sw.reshape(B, S, wcap), sb.reshape(B, S))
+
+
+MAGIC_RANGE = 1 << 20               # x < f * 2^20 before the divide
+
+
+def _magic_one(f: int) -> tuple[int, int, int]:
+    """(m, s, a) for one f: the first s whose round-up (a = 0, m =
+    ceil(2^k / f)) or round-down (a = 1, m = floor(2^k / f), y + 1) multiply
+    is exact on y < f * (2^20 + 1), k = 32 + s, by the method's error
+    bound: round-up errs first at the largest y (y * e < 2^k, e = m*f -
+    2^k), round-down at the largest multiple of f ((2^20 * f + 1) * e' <=
+    2^k, e' = 2^k - m*f > 0)."""
+    top = f * (MAGIC_RANGE + 1) - 1
+    for s in range(32):
+        k = 32 + s
+        m = -(-(1 << k) // f)
+        if m < 1 << 32 and top * (m * f - (1 << k)) < 1 << k:
+            return m, s, 0
+        m = min((1 << k) // f, (1 << 32) - 1)
+        e = (1 << k) - m * f
+        if e > 0 and (MAGIC_RANGE * f + 1) * e <= 1 << k:
+            return m, s, 1
+    raise ValueError(f"no 32-bit divisor constants for f={f}")
+
+
+def div_magic(f) -> np.ndarray:
+    """K7's divisor constants: int64 [..., 3] rows (m, s, a) for f in
+    1..4096 with ((y + a) * m) >> (32 + s) == y // f for every
+    0 <= y < f * (2^20 + 1): the state before the divide (x < f * 2^20)
+    plus bit * f, which folds the cdf base into the quotient."""
+    f = np.asarray(f, dtype=np.int64)
+    rows = [_magic_one(int(v)) for v in f.reshape(-1)]
+    return np.asarray(rows, dtype=np.int64).reshape(f.shape + (3,))
+
+
+_MAGIC: dict = {}
+
+
+def magic_table(dev) -> torch.Tensor:
+    """K7's table on `dev`, built once: int32 [4096, 2] bit patterns of
+    (m, s | a << 5) for f = 1..4096."""
+    dev = torch.device(dev)
+    if dev not in _MAGIC:
+        m, s, a = div_magic(np.arange(1, PSCALE + 1)).T
+        tab = np.stack([m, s | a << 5], axis=1).astype(np.uint32)
+        _MAGIC[dev] = torch.from_numpy(tab.view(np.int32)).to(dev)
+    return _MAGIC[dev]
+
+
+def step_flag_words(flags: torch.Tensor) -> torch.Tensor:
+    """The kernel's flag words from step flags bool [steps, S, N]: int64
+    [S, G, Np] with bit u of [s, g, l] set iff lane l of stripe s emitted
+    at step 32g + u (G = ceil(steps / 32), lanes rounded up to whole warps
+    of 32, pads 0)."""
+    steps, S, N = flags.shape
+    G, Np = -(-steps // 32), -(-N // 32) * 32
+    f = torch.zeros((G * 32, S, Np), dtype=torch.int64, device=flags.device)
+    f[:steps, :, :N] = flags.to(torch.int64)
+    u = torch.arange(32, device=flags.device).reshape(1, 32, 1, 1)
+    return (f.reshape(G, 32, S, Np) << u).sum(1).permute(1, 0, 2)
+
+
+_T_MASKS = (0x0000FFFF, 0x00FF00FF, 0x0F0F0F0F, 0x33333333, 0x55555555)
+
+
+def transpose32_plain(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's warp transpose of 32 x 32 bits over the last dim (int64
+    of uint32 values): row j's bit u becomes row u's bit j, by the same
+    five block swaps (a shuffle each on the card)."""
+    j = torch.arange(32, device=x.device)
+    for m, k in zip(_T_MASKS, (16, 8, 4, 2, 1)):
+        o = x[..., j ^ k]
+        x = torch.where((j & k) != 0, (x & (m ^ U32)) | ((o >> k) & m),
+                        (x & m) | ((o & m) << k))
+    return x
+
+
+def stream_order_plain(words: torch.Tensor, fw: torch.Tensor):
+    """Plain twin of K7's stream-order pass: (stream words int32 [S, Wcap],
+    nbits int64 [S]) from each lane's word at each step, words int64 [S,
+    steps, N] (read only where flagged), and the flag words fw int64 [S, G,
+    Np] of ``step_flag_words``.  As on the card: the groups' counts and
+    their exclusive scan, the flag bits transposed per 32 lanes so that
+    step u holds its emitting lanes, and stream word p written as half p ^ 1
+    of the little-endian uint32 words (the high half when p is even)."""
+    S, steps, N = words.shape
+    G, Np = fw.shape[1], fw.shape[2]
+    nc, wcap = Np // 32, -(-(steps * N) // 2)
+    cnt = popcount(fw).sum(-1)                            # [S, G]
+    pg = torch.cumsum(cnt, 1) - cnt
+    M = transpose32_plain(fw.reshape(S, G, nc, 32))       # [S, G, c, u]
+    pm = popcount(M)
+    e = pm.sum(2)                                         # [S, G, u]
+    before = (torch.cumsum(e, -1) - e)[:, :, None] + torch.cumsum(pm, 2) - pm
+    j = torch.arange(32, device=words.device)
+    on = ((M[..., None] >> j) & 1).bool()                 # [S, G, c, u, j]
+    pos = (pg[:, :, None, None, None] + before[..., None]
+           + popcount(M[..., None] & ((1 << j) - 1)))
+    wpad = torch.zeros((S, G * 32, Np), dtype=torch.int64,
+                       device=words.device)
+    wpad[:, :steps, :N] = words
+    wv = wpad.reshape(S, G, 32, nc, 32).permute(0, 1, 3, 2, 4)
+    stripe = torch.arange(S, device=words.device).reshape(S, 1, 1, 1, 1)
+    half = torch.zeros((S, 2 * wcap), dtype=torch.int64, device=words.device)
+    half[stripe.expand_as(pos)[on], pos[on] ^ 1] = wv[on] & 0xFFFF
+    stream = half[:, 1::2] << 16 | half[:, 0::2]
+    return bitpack.to_i32(stream), 16 * cnt.sum(1)
 
 
 def rans_encode(bits, ctx, p_used, *, stripe_rows: int,
@@ -202,7 +342,8 @@ def rans_encode(bits, ctx, p_used, *, stripe_rows: int,
 
 
 def _launch(bits, ctx, p_used, *, stripe_rows: int, n_lanes: int):
-    """Launch csrc/rans_encode.cu: one block per stripe."""
+    """Launch csrc/rans_encode.cu: one block per stripe (chain warps for
+    the lanes, producer warps for their inputs)."""
     B, rows, cols = bits.shape
     dev = bits.device
     if bits.dtype == torch.bool:
@@ -222,14 +363,18 @@ def _launch(bits, ctx, p_used, *, stripe_rows: int, n_lanes: int):
     states = torch.empty((B, S, n_lanes), dtype=torch.int32, device=dev)
     words = torch.zeros((B, S, wcap), dtype=torch.int32, device=dev)
     nbits = torch.empty((B, S), dtype=torch.int64, device=dev)
+    # a word slot per (step, lane), and a flag word per 32 steps and lane
     scratch = torch.empty((B * S, steps * n_lanes), dtype=torch.int16,
                           device=dev)
+    flags = torch.empty((B * S, -(-steps // 32) * -(-n_lanes // 32) * 32),
+                        dtype=torch.int32, device=dev)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     lib = _cuda.get_lib()
     _cuda.check(lib.bic_rans_encode(
-        ptr(bits), ptr(ctx), ptr(p_used), ptr(scratch), ptr(states),
-        ptr(words), ptr(nbits), B, rows, cols, S, stripe_rows, steps,
-        n_lanes, _cuda.stream(dev)), "bic_rans_encode")
+        ptr(bits), ptr(ctx), ptr(p_used), ptr(magic_table(dev)),
+        ptr(scratch), ptr(flags), ptr(states), ptr(words), ptr(nbits), B,
+        rows, cols, S, stripe_rows, steps, n_lanes, _cuda.stream(dev)),
+        "bic_rans_encode")
     _cuda.launches["rans_encode"] += 1
     return states, words, nbits
 

@@ -7,8 +7,10 @@ holds each kernel (K1's field plane and search, K2 decision, K3 strict
 analysis, K4's 64-bit field plane and banded search, K5 packed distances,
 K6 packed row weights, the BSVD pursuit kernel that fuses K5 and K6,
 on planted inputs up to a letter page's 33,120 patches, and K7, codec 13's
-interleaved-rANS encode, on every codec-13 case of the CPU tests and a
-letter page) against its plain PyTorch version on the card, then
+interleaved-rANS encode, on random tables, the densest emission at 1, 33
+and 255 lanes, three pages in one launch, every codec-13 case of the CPU
+tests and a letter page, and on doc512 also against its stream-order
+twin) against its plain PyTorch version on the card, then
 drives the port's five paths, each with
 the launch counts reset just before it and read just after: the causal
 encode (one 512x512 page, then a 64-page corpus through the archive
@@ -28,6 +30,7 @@ CPU, codec 13's host-entropy streams against the native coder's own
 context scan, and each is round-tripped; stages and kernels are timed with CUDA
 events (K1's, K2's, K3's and K4's kernels also by torch.profiler's device
 times; the W = 16 and W = 64 encodes split into stages),
+K7 also at 1, 8 and 32 pages a launch and in clocks a step,
 and each kernel's time is printed beside its least time on the card
 (``utils/roofline``) and, for K1's plane, K5 and K6, the one PyTorch call
 that computes the same function; the pursuit kernel also beside the sweep
@@ -1278,7 +1281,11 @@ def banded_times(compress, codec, sw, fs, bitpack, pnm, roofline, dev, gpu):
 K7_RANDOM = [(64, 64, 32, 32), (75, 101, 19, 4), (75, 101, 38, 8),
              (1, 7, 1, 32), (129, 67, 65, 64), (33, 65, 17, 33),
              (50, 50, 25, 255), (96, 80, 96, 1)]
+# K7's densest emission (f = 1 at every step, a word on ~3 steps in 4):
+# short last stripes (18 and 1 rows) at 1, 33 and 255 lanes
+K7_DENSE = [(75, 101, 19, 1), (100, 37, 33, 33), (75, 101, 38, 255)]
 SCAB_BYTES = {"host": 15097, "device": 14402}
+K7_BATCHES = (1, 8, 32)
 
 
 def k7_cases(codec, pnm) -> list:
@@ -1346,10 +1353,62 @@ def check_k7(rd, compress, codec, pnm, dev) -> int:
         p_used = torch.from_numpy(
             rs.randint(1, 4096, (2, 4096)).astype(np.int16)).to(dev)
         worst = max(worst, one("random table", (bits, ctx, p_used), sr, nl))
+    for rows, cols, sr, nl in K7_DENSE:
+        rs = np.random.RandomState(rows + nl)
+        bits = torch.from_numpy(rs.rand(2, rows, cols) < 0.5).to(dev)
+        p_used = torch.full((2, 4096), 4095, dtype=torch.int16, device=dev)
+        p_used[:, 1] = 1
+        worst = max(worst, one("densest emission",
+                               (bits, bits.to(torch.int16), p_used), sr, nl))
+    rs = np.random.RandomState(3)
+    bits = torch.from_numpy(rs.rand(3, 100, 37) < np.array(
+        [0.05, 0.3, 0.7])[:, None, None]).to(dev)
+    ctx = torch.stack([compress.scab_ctx_map(b, tmpl=12, stripe_rows=33)
+                       for b in bits])
+    p_used = torch.from_numpy(
+        rs.randint(1, 4096, (3, 4096)).astype(np.int16)).to(dev)
+    worst = max(worst, one("3 pages of different content",
+                           (bits, ctx, p_used), 33, 32))
     for name, img, p, nl in k7_cases(codec, pnm):
         a, sr = scab_inputs(compress, codec, rd, img, p, dev)
         worst = max(worst, one(name, a, sr, nl))
+        if name == "doc512":
+            # the kernel's stream-order pass as torch ops, on the card
+            twin = rd.rans_stripes_twin(*a, stripe_rows=sr, n_lanes=nl)
+            got = rd._launch(*a, stripe_rows=sr, n_lanes=nl)
+            if not all(torch.equal(g, w) for g, w in zip(got, twin)):
+                raise AssertionError("K7 != its stream-order twin on doc512")
+            log("K7 doc512: == rans_stripes_twin (the plain loop through "
+                "stream_order_plain) on the card")
     return worst
+
+
+def k7_batch_times(compress, codec, rd, roofline, doc, dev, gpu):
+    """K7 at B = 1, 8 and 32 doc512 pages a launch (the corpus rolls of
+    ``np.random.RandomState(0)``), each page with its own table: device
+    time per launch (torch.profiler) and per page, at 4 stripes x 32 lanes
+    a page."""
+    rng = np.random.RandomState(0)
+    pages = [np.roll(doc, (int(rng.randint(512)), int(rng.randint(512))),
+                     axis=(0, 1)) for _ in range(max(K7_BATCHES))]
+    p = codec.CodecParams(codec=13, W=0, T=0, R=0)
+    ins = [scab_inputs(compress, codec, rd, img, p, dev) for img in pages]
+    sr = ins[0][1]
+    _, steps, _ = rd.stripe_geometry(512, 512, sr, 32)
+    floor = roofline.rans_work(512 * 512, steps, 4, 32)[1]
+    out = {}
+    for B in K7_BATCHES:
+        a = tuple(torch.cat([x[0][i] for x in ins[:B]]) for i in range(3))
+        k7 = lambda: rd.rans_encode(*a, stripe_rows=sr)
+        ms = cuda_ms(k7, 10)
+        dk = device_ms(k7, "rans_encode_kernel", 10)
+        out[B] = (ms, dk)
+        log(f"K7 doc512 corpus, B={B} pages a launch ({4 * B} blocks): "
+            f"{ms:.4f} ms per launch (events), device {nd(dk)}, per page "
+            f"{ms / B:.4f} (events), "
+            f"{'not measured' if dk is None else f'{dk / B:.4f}'} "
+            f"(device); one page's chain floor {floor:.4f} ms [{gpu}]")
+    return out
 
 
 def scab_path(compress, codec, pnm):
@@ -1466,12 +1525,16 @@ def scab_times(compress, codec, rd, bitpack, pnm, roofline, dev, gpu):
         nbytes, floor = roofline.rans_work(rows * cols, steps, S, 32,
                                            int(res["bits"].sum()) // 8)
         bound = roofline.bound_ms(nbytes=nbytes)
-        ratio = "" if dk7 is None else f", device {dk7 / floor:.2f}x the floor"
+        ratio = "" if dk7 is None else (
+            f", device {dk7 / floor:.2f}x the floor, "
+            f"{dk7 * 1e-3 * roofline.H100_CLOCK_HZ / steps:.0f} clocks a "
+            f"step at {roofline.H100_CLOCK_HZ / 1e9:.2f} GHz")
         log(f"K7 {name}: {ms:.4f} ms per launch (CUDA events), device "
             f"{nd(dk7)} (torch.profiler, mean of 10); bound {bound[0]:.6f} "
             f"ms ({bound[1]}), chain floor {floor:.4f} ms ({S} stripes x 32 "
             f"lanes, {steps} steps){ratio}; plain {plain:.3f} ms [{gpu}]")
         figures[name] = (ms, plain, bound, None)
+    k7_batch_times(compress, codec, rd, roofline, doc, dev, gpu)
     return figures["doc512"]
 
 

@@ -3,17 +3,21 @@ card, to find where a step's clocks go.
 
     python3 scripts/k7_variants.py [--reps N]
 
-Builds ``scripts/k7_variants.cu`` once per variant (nvcc for sm_90a, one
-process per variant, all started together), builds the port's kernels,
-and times each variant and the port's K7 by torch.profiler's device time
+Builds ``binary_image_compression_tpu_torch/csrc/rans_encode.cu`` once per
+variant with -D switches (nvcc for sm_90a, one process per variant, all
+started together) and K7's first design, ``scripts/k7_first_design.cu``,
+builds the port's kernels, and times each variant by torch.profiler's device time
 (mean of N launches, min of three) on doc512 and on a 3300 x 2550 letter
 page (doc512 tiled), each at codec 13's defaults (32 lanes; 4 and 16
 stripes) with the table the page builds on the card.  Variants that keep
 the arithmetic must equal the port's K7 exactly; the others
-(``K7_DIV=1``, ``K7_EMIT=0``) give wrong streams and time what they leave
-out.  Prints the card's name and power limit, a line per variant with its
-clocks per step at the boost clock, and one JSON line.  Needs a CUDA
-device.
+(``K7_NO_DIVIDE``, ``K7_NO_EMIT``) give wrong streams and time what they
+leave out.  ``K7_MAX_STAGES`` caps the ring of staged inputs (11 stages of
+32 steps at 32 lanes by default; as many producer warps as stages at
+most), ``K7_PRODUCERS`` sets the producer warps (11 beside one chain warp
+by default).  Prints the card's name and power limit,
+a line per variant with its clocks per step at the boost clock, and one
+JSON line.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -22,25 +26,31 @@ import argparse
 import ctypes
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(HERE, "scripts", "k7_variants.cu")
+NEW = os.path.join(HERE, "binary_image_compression_tpu_torch", "csrc",
+                   "rans_encode.cu")
+FIRST = os.path.join(HERE, "scripts", "k7_first_design.cu")
 OUT = os.path.join(HERE, "build", "k7_variants")
-# name -> (-D switches, exact)
+# name -> (source, -D switches, exact)
 VARIANTS = {
-    "base (K7)": ({}, True),
-    "chunk 4": ({"K7_CHUNK": 4}, True),
-    "chunk 16": ({"K7_CHUNK": 16}, True),
-    "32-bit indices": ({"K7_IDX64": 0}, True),
-    "reciprocal table": ({"K7_DIV": 2}, True),
-    "reciprocal table, 32-bit indices": ({"K7_DIV": 2, "K7_IDX64": 0}, True),
-    "no divide (x >> 12)": ({"K7_DIV": 1}, False),
-    "no emission": ({"K7_EMIT": 0}, False),
-    "no divide, no emission": ({"K7_DIV": 1, "K7_EMIT": 0}, False),
+    "K7": (NEW, {}, True),
+    "ring of 4 stages (128 steps)": (NEW, {"K7_MAX_STAGES": 4}, True),
+    "ring of 2 stages (64 steps)": (NEW, {"K7_MAX_STAGES": 2}, True),
+    "ring of 1 stage (32 steps)": (NEW, {"K7_MAX_STAGES": 1}, True),
+    "3 producer warps": (NEW, {"K7_PRODUCERS": 3}, True),
+    "6 producer warps": (NEW, {"K7_PRODUCERS": 6}, True),
+    "no divide (x >> 12)": (NEW, {"K7_NO_DIVIDE": 1}, False),
+    "no emission": (NEW, {"K7_NO_EMIT": 1}, False),
+    "no divide, no emission": (NEW, {"K7_NO_DIVIDE": 1, "K7_NO_EMIT": 1},
+                               False),
+    "first design": (FIRST, {}, True),
 }
 
 
@@ -54,11 +64,11 @@ def build(nvcc: str, flags: list) -> dict:
     """One shared library per variant, all nvcc processes at once."""
     os.makedirs(OUT, exist_ok=True)
     libs, procs = {}, []
-    for i, (name, (defs, _)) in enumerate(VARIANTS.items()):
+    for i, (name, (src, defs, _)) in enumerate(VARIANTS.items()):
         lib = os.path.join(OUT, f"k7v{i}.so")
         d = [f"-D{k}={v}" for k, v in defs.items()]
         procs.append((name, lib, subprocess.Popen(
-            [nvcc, *flags, *d, "-shared", "-o", lib, SRC],
+            [nvcc, *flags, *d, "-shared", "-o", lib, src],
             stderr=subprocess.PIPE, text=True)))
     for name, lib, proc in procs:
         err = proc.communicate(timeout=600)[1]
@@ -66,6 +76,30 @@ def build(nvcc: str, flags: list) -> dict:
             raise RuntimeError(f"nvcc failed for {name}:\n{err[-3000:]}")
         libs[name] = lib
     return libs
+
+
+def chain_sass(lib: str) -> tuple[int, float]:
+    """(instructions, per step) of K7's chain over one 32-step stage in
+    the SASS of `lib` (``cuobjdump -sass``): the 32-bit-offset, 32-step
+    instance, from the chain's wait on a full stage to its arrival on the
+    empty barrier (the span that loads 32 records, LDS.128)."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    fn = next(f for f in sass.split("Function : ")
+              if "rans_encode_kernelIiLi32E" in f.split("\n", 1)[0])
+    ops = [m.group(1).strip() for m in
+           re.finditer(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", fn)]
+    spans, start = [], None
+    for k, op in enumerate(ops):
+        if "TRYWAIT" in op:
+            start = k
+        elif "SYNCS.ARRIVE" in op and start is not None:
+            spans.append(ops[start:k + 1])
+            start = None
+    n = min(len(sp) for sp in spans
+            if sum(op.startswith("LDS.128") for op in sp) == 32)
+    return n, n / 32
 
 
 def main() -> int:
@@ -86,13 +120,17 @@ def main() -> int:
     print(gpu, flush=True)
     libs = build(_cuda._nvcc(), _cuda.NVCC_FLAGS)
     _cuda.get_lib()
+    n_sass, per_step = chain_sass(libs["K7"])
+    print(f"K7 chain SASS: {n_sass} instructions over a 32-step stage, "
+          f"{per_step:.1f} a step (cuobjdump -sass)", flush=True)
     fns = {}
     for name, path in libs.items():
-        fn = ctypes.CDLL(path).bic_rans_variant
+        new = VARIANTS[name][0] == NEW
+        fn = ctypes.CDLL(path).bic_rans_encode
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
-        fns[name] = fn
+        fn.argtypes = [ctypes.c_void_p] * (9 if new else 7) + [
+            ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fns[name] = (fn, new)
 
     dev = torch.device("cuda", 0)
     doc = pnm.read_pbm(os.path.join(HERE, "tests", "fixtures", "doc512.pbm"))
@@ -112,30 +150,35 @@ def main() -> int:
         want = rd._launch(*a, stripe_rows=sr, n_lanes=32)
         _, steps, wcap = rd.stripe_geometry(rows, cols, sr, 32)
         floor = roofline.rans_work(rows * cols, steps, S, 32)[1]
+        magic = rd.magic_table(dev)
 
-        def launcher(fn):
+        def launcher(fn, new):
             def run():
                 out = (torch.empty((S, 32), dtype=torch.int32, device=dev),
                        torch.zeros((S, wcap), dtype=torch.int32, device=dev),
                        torch.empty(S, dtype=torch.int64, device=dev))
                 scratch = torch.empty((S, steps * 32), dtype=torch.int16,
                                       device=dev)
+                flags = torch.empty((S, -(-steps // 32) * 32),
+                                    dtype=torch.int32, device=dev)
                 ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-                _cuda.check(fn(ptr(a[0]), ptr(a[1]), ptr(a[2]), ptr(scratch),
+                mid = [ptr(magic), ptr(scratch), ptr(flags)] if new else [
+                    ptr(scratch)]
+                _cuda.check(fn(ptr(a[0]), ptr(a[1]), ptr(a[2]), *mid,
                                ptr(out[0]), ptr(out[1]), ptr(out[2]), 1,
                                rows, cols, S, sr, steps, 32,
-                               _cuda.stream(dev)), "bic_rans_variant")
+                               _cuda.stream(dev)), "K7 variant")
                 return out
             return run
 
         result[page] = {}
-        for name, fn in fns.items():
-            run = launcher(fn)
+        for name, (fn, new) in fns.items():
+            run = launcher(fn, new)
             got = run()
             torch.cuda.synchronize()
             same = all(torch.equal(g, w.reshape(g.shape))
                        for g, w in zip(got, want))
-            if VARIANTS[name][1] and not same:
+            if VARIANTS[name][2] and not same:
                 raise AssertionError(f"{name} != K7 on {page}")
             best = None
             for _ in range(3):
@@ -144,7 +187,7 @@ def main() -> int:
                         run()
                     torch.cuda.synchronize()
                 us = sum(e.device_time_total for e in prof.key_averages()
-                         if "rans_variant_kernel" in e.key)
+                         if "rans_encode_kernel" in e.key)
                 ms = us / 1e3 / args.reps if us else None
                 best = ms if best is None or (ms and ms < best) else best
             clk = None if best is None else (
@@ -157,7 +200,8 @@ def main() -> int:
                   f"{'' if clk is None else f', {clk:.0f} clocks a step'}"
                   f"{'' if same else ' (stream differs)'} [{gpu}]",
                   flush=True)
-    print(json.dumps({"gpu": gpu, "k7_variants": result}))
+    print(json.dumps({"gpu": gpu, "chain_sass_per_step": per_step,
+                      "k7_variants": result}))
     return 0
 
 

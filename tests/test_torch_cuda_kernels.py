@@ -396,6 +396,49 @@ def test_k7_kernel_matches_plain(dev, rows, cols, sr, n_lanes):
         assert torch.equal(g, w)
 
 
+def _k7_matches_plain(bits, ctx, p_used, sr, n_lanes):
+    before = _cuda.launches["rans_encode"]
+    got = ransdevice.rans_encode(bits, ctx, p_used, stripe_rows=sr,
+                                 n_lanes=n_lanes)
+    assert _cuda.launches["rans_encode"] == before + 1
+    want = ransdevice.rans_stripes_plain(bits, ctx, p_used, stripe_rows=sr,
+                                         n_lanes=n_lanes)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return got
+
+
+# (rows, cols, stripe_rows, n_lanes): short last stripes (18 and 1 rows) at
+# one lane, 33 lanes (two chain warps, the second part-filled) and 255
+K7_DENSE = [(75, 101, 19, 1), (100, 37, 33, 33), (75, 101, 38, 255)]
+
+
+@pytest.mark.parametrize("rows,cols,sr,n_lanes", K7_DENSE)
+def test_k7_densest_emission_matches_plain(dev, rows, cols, sr, n_lanes):
+    """Contexts 0 and 1 at p1 = 4095 and 1, the context the bit: f = 1 at
+    every step, 12 bits a step, a word on about three steps in four."""
+    rs = np.random.RandomState(rows + n_lanes)
+    bits = torch.from_numpy(rs.rand(2, rows, cols) < 0.5).to(dev)
+    p_used = torch.full((2, 4096), 4095, dtype=torch.int16, device=dev)
+    p_used[:, 1] = 1
+    got = _k7_matches_plain(bits, bits.to(torch.int16), p_used, sr, n_lanes)
+    assert int(got[2].sum()) >= 16 * (4 * rows * cols // 3)
+
+
+def test_k7_three_different_pages_in_one_launch(dev):
+    rs = np.random.RandomState(3)
+    bits = torch.from_numpy(
+        rs.rand(3, 100, 37) < np.array([0.05, 0.3, 0.7])[:, None, None])
+    bits = bits.to(dev)
+    ctx = torch.stack([compress.scab_ctx_map(b, tmpl=12, stripe_rows=33)
+                       for b in bits])
+    p_used = torch.from_numpy(
+        rs.randint(1, 4096, (3, 4096)).astype(np.int16)).to(dev)
+    got = _k7_matches_plain(bits, ctx, p_used, 33, 32)
+    assert len(set(got[2].sum(1).tolist())) == 3
+
+
 @pytest.mark.parametrize("entropy", ["host", "device"])
 @pytest.mark.parametrize("name,T", [("doc512.pbm", 0), ("text64.pbm", 2),
                                     ("ragged75x101.pbm", 4)])
