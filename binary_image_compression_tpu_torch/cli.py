@@ -1,5 +1,5 @@
-"""Command line of the PyTorch/CUDA port (codecs 8, 11 and 13, BSVD
-learning).
+"""Command line of the PyTorch/CUDA port (codecs 8, 10, 11 and 13,
+grayscale and color, BSVD learning).
 
 Counterpart of ``binary_image_compression_tpu/cli.py`` for the commands the
 port covers:
@@ -9,16 +9,26 @@ port covers:
     python -m binary_image_compression_tpu_torch archive    a.pbm b.pbm out.bica
     python -m binary_image_compression_tpu_torch extract    in.bica out.pbm --page 0
     python -m binary_image_compression_tpu_torch bsvd       in.pbm [bsvd_test flags]
+    python -m binary_image_compression_tpu_torch bitplanes  in.pgm
+    python -m binary_image_compression_tpu_torch planes2pgm plane_ out.pgm
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain PyTorch
-versions of the kernels.  ``compress --codec 11`` is the learned-dictionary
+versions of the kernels.  ``compress --codec 10`` is full-image MED with
+adaptive exp-Golomb runs; ``--codec 11`` the learned-dictionary
 patch codec; ``--codec 13`` the striped context-adaptive coder, its context
 map on the device and its entropy coder on the host (``--entropy host``,
 the default) or on the device (``--entropy device``: static table and
 interleaved rANS, kernel K7); ``--codec auto`` keeps the smaller of codec
 13 (host entropy) and codec 8.  ``--mode strict`` encodes codec 8 with the
 residual-substitution kernel K3 (archives: the native host encoder per
-page).  ``bsvd`` is the JAX CLI's device backend (``--backend tpu``) of
+page).  ``compress`` also takes .pgm/.pnm input, coded plane by plane
+into a BICG stream, and .ppm, into a BICC stream (``decompress`` writes
+them back): with no codec flag, each plane takes the smaller
+of codec 13 and codec 10 on the host; explicit flags (JAX's rule: any of
+--codec, -W, -T, -R, --mode off its default) code every plane with them,
+``--codec 10`` with the MED on the device and the native EG runs; and
+``--entropy device`` codes the whole stack with codec 13 mode 2 on the
+device.  ``bsvd`` is the JAX CLI's device backend (``--backend tpu``) of
 bsvd_test; the rand48 reference replay (``--backend ref``) is not ported.
 Other codecs exit with the ROADMAP item that will port them.
 """
@@ -37,14 +47,14 @@ BSVD_INITS = {0: "neighbor", 1: "partition", 2: "random_centroids",
               3: "random_centroids", 4: "graph_grow"}
 
 
-def _params(args, codecs=(8, 11, 13)):
+def _params(args, codecs=(8, 10, 11, 13)):
     from .models import codec
     cid = int(args.codec) if args.codec.isdigit() else None
     if cid not in codecs:
         sys.exit(f"{args.cmd} --codec {args.codec} is not ported yet: "
-                 "codecs 4/7 are ROADMAP.md Queue 1 item 4, codec 10 item 3, "
-                 "codecs 1/2/3/6/12 item 5, codec-11 and codec-13 archives "
-                 "item 7; use the JAX package "
+                 "codecs 4/7 are ROADMAP.md Queue 1 item 4, "
+                 "codecs 1/2/3/6/12 item 5, codec-10, codec-11 and codec-13 "
+                 "archives item 7; use the JAX package "
                  "(python -m binary_image_compression_tpu)")
     return codec.CodecParams(codec=cid, W=args.W, T=args.T, R=args.R,
                              strict=args.mode == "strict")
@@ -52,7 +62,7 @@ def _params(args, codecs=(8, 11, 13)):
 
 def _add_codec_opts(p):
     p.add_argument("--codec", default="8",
-                   help="codec id (8, 11, 13) or auto: the smaller of "
+                   help="codec id (8, 10, 11, 13) or auto: the smaller of "
                         "codec 13 and codec 8")
     p.add_argument("-W", type=int, default=16, help="tile width")
     p.add_argument("-T", type=int, default=None, help="early-exit threshold")
@@ -63,7 +73,8 @@ def _add_codec_opts(p):
     p.add_argument("--entropy", choices=["host", "device"], default="host",
                    help="codec 13 only: host = adaptive range coder "
                         "(payload mode 1), device = static table and "
-                        "interleaved rANS built on the device (mode 2)")
+                        "interleaved rANS built on the device (mode 2; for "
+                        "PGM/PPM input every plane, whatever the codec)")
 
 
 def _encode8(img, params, device):
@@ -76,9 +87,11 @@ def _encode8(img, params, device):
 def cmd_compress(args):
     from .models import codec, compress
     from .utils import pnm
-    if os.path.splitext(args.input)[1].lower() != ".pbm":
-        sys.exit("grayscale and color input are not ported yet "
-                 "(ROADMAP.md Queue 1 item 3)")
+    ext = os.path.splitext(args.input)[1].lower()
+    if ext in (".pgm", ".pnm", ".ppm"):
+        return _compress_gray(args, ext)
+    if ext != ".pbm":
+        sys.exit(f"{args.input}: compress takes .pbm, .pgm, .pnm or .ppm")
     img = pnm.read_pbm(args.input)
     if args.codec == "auto":
         # the smaller of codec 13 (host entropy) and codec 8 (JAX cli.py:127)
@@ -92,15 +105,48 @@ def cmd_compress(args):
         if params.codec == 13:
             blob = compress.encode_scab(img, params, entropy=args.entropy,
                                         device=args.device)
-        elif params.codec == 11:
+        elif params.codec in (10, 11):
             blob = codec.encode(img, params, device=args.device)
         else:
             blob = _encode8(img, params, args.device)
+    _write(args, blob, img.size // 8, f", codec {blob[8]}")
+
+
+def _compress_gray(args, ext):
+    """A PGM or PPM, plane by plane (JAX cli.py:54-85): no codec flag, the
+    per-plane best of codecs 13 and 10 on the host; explicit flags, every
+    plane with them (codec 10 with the MED on the device); --entropy
+    device, codec 13 mode 2 on the device for the whole stack."""
+    from .models import codec
+    from .utils import pnm
+    if args.codec == "auto":
+        sys.exit("--codec auto takes PBM input")
+    explicit = (args.codec != "8" or args.W != 16 or args.T is not None
+                or args.R != 128 or args.mode != "causal")
+    params = _params(args) if explicit else None
+    if args.entropy == "device":
+        backend = "device-rans"
+    elif params is not None and params.codec == 10:
+        backend = "device"
+    else:
+        backend = "host"
+    img, maxval = pnm.read_pnm(args.input)
+    if ext == ".ppm":
+        blob = codec.encode_ppm(img, maxval, params, backend=backend,
+                                device=args.device)
+        raw = img.size * 3
+    else:
+        blob = codec.encode_pgm(img, maxval, params, backend=backend,
+                                device=args.device)
+        raw = img.size * (2 if maxval > 255 else 1)
+    _write(args, blob, raw, "")
+
+
+def _write(args, blob: bytes, raw: int, what: str) -> None:
     with open(args.output, "wb") as f:
         f.write(blob)
-    raw = img.size // 8
     print(f"{args.input}: {raw}B raw -> {len(blob)}B "
-          f"({100.0 * len(blob) / raw:.2f}%, codec {blob[8]})")
+          f"({100.0 * len(blob) / raw:.2f}%{what})")
 
 
 def cmd_decompress(args):
@@ -108,7 +154,14 @@ def cmd_decompress(args):
     from .utils import pnm
     with open(args.input, "rb") as f:
         blob = f.read()
-    pnm.write_pbm(codec.decode(blob), args.output)
+    if blob[:4] == codec.PPM_MAGIC:
+        rgb, maxval = codec.decode_ppm(blob)
+        pnm.write_ppm(rgb, maxval, args.output)
+    elif blob[:4] == codec.PGM_MAGIC:
+        gray, maxval = codec.decode_pgm(blob)
+        pnm.write_pgm(gray, maxval, args.output)
+    else:
+        pnm.write_pbm(codec.decode(blob), args.output)
     print(f"wrote {args.output}")
 
 
@@ -188,6 +241,30 @@ def cmd_bsvd(args):
           f"N={A.shape[0]})")
 
 
+def cmd_bitplanes(args):
+    """A PGM -> one PBM per bitplane, <prefix>NN.pbm (bitplane_tool)."""
+    from .utils import bitplanes, pnm
+    gray, maxval = pnm.read_pnm(args.input)
+    planes = bitplanes.decompose(gray, maxval)
+    for i in range(planes.shape[0]):
+        pnm.write_pbm(planes[i], f"{args.prefix}{i:02d}.pbm")
+    print(f"wrote {planes.shape[0]} planes ({args.prefix}NN.pbm)")
+
+
+def cmd_planes2pgm(args):
+    """<prefix>00.pbm, 01, ... -> one PGM (plane2pgm_tool), maxval the
+    final mask (plane2pgm_tool.cpp:53)."""
+    from .utils import bitplanes, pnm
+    planes = []
+    while os.path.exists(f"{args.prefix}{len(planes):02d}.pbm"):
+        planes.append(pnm.read_pbm(f"{args.prefix}{len(planes):02d}.pbm"))
+    if not planes:
+        sys.exit(f"no {args.prefix}NN.pbm files found")
+    gray = bitplanes.recompose(np.stack(planes))
+    pnm.write_pgm(gray, (1 << len(planes)) - 1, args.output)
+    print(f"wrote {args.output} from {len(planes)} planes")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m binary_image_compression_tpu_torch",
@@ -195,14 +272,15 @@ def main(argv=None):
         formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("compress", help="PBM -> .bic (codecs 8, 11, 13)")
+    p = sub.add_parser("compress", help="PBM/PGM/PPM -> .bic (codecs 8, 10, "
+                                        "11, 13)")
     p.add_argument("input")
     p.add_argument("output")
     _add_codec_opts(p)
     p.set_defaults(fn=cmd_compress)
 
-    p = sub.add_parser("decompress",
-                       help=".bic -> PBM (codecs 4/6/7/8, 11, 13)")
+    p = sub.add_parser("decompress", help=".bic -> PBM/PGM/PPM (codecs "
+                                          "4/6/7/8, 10, 11, 13)")
     p.add_argument("input")
     p.add_argument("output")
     p.set_defaults(fn=cmd_decompress)
@@ -242,6 +320,16 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
     p.set_defaults(fn=cmd_bsvd)
+
+    p = sub.add_parser("bitplanes", help="PGM -> plane_NN.pbm")
+    p.add_argument("input")
+    p.add_argument("--prefix", default="plane_")
+    p.set_defaults(fn=cmd_bitplanes)
+
+    p = sub.add_parser("planes2pgm", help="plane_NN.pbm -> PGM")
+    p.add_argument("prefix")
+    p.add_argument("output")
+    p.set_defaults(fn=cmd_planes2pgm)
 
     args = ap.parse_args(argv)
     args.fn(args)

@@ -2,7 +2,7 @@
 
 Counterpart of ``binary_image_compression_tpu/models/archive.py``:
 ``encode_pages`` (codec 8 and the windowed codecs 4/6/7 in strict mode, and
-codecs 11 and 13 through ``codec.encode``, as in JAX), ``encode_archive``
+codecs 10, 11 and 13 through ``codec.encode``, as in JAX), ``encode_archive``
 with its journal
 (``_corpus_fingerprint``, ``_journal_read``, ``_journal_append``),
 ``page_count``, ``decode_page`` and ``decode_archive``.
@@ -37,19 +37,19 @@ def encode_pages(pages, params: CodecParams | None = None, *,
     shape go through the device together (one search and one K2 launch per
     batch); strict pages of codecs 4/6/7/8 go to the native host encoder
     one at a time, as in the JAX package, which has no batched strict
-    kernel; codecs 11 and 13 go to ``codec.encode`` page by page (codec 11
-    learns on `device`), as JAX sends them.  The codecs ``codec.encode``
+    kernel; codecs 10, 11 and 13 go to ``codec.encode`` page by page (codec
+    11 learns on `device`), as JAX sends them.  The codecs ``codec.encode``
     does not take yet raise NotImplementedError.
 
     done: already-encoded {index: blob} to skip (resume).
     after_batch(new: dict[int, bytes]): called after every finished batch."""
     params = params or CodecParams(codec=8, strict=False)
-    by_codec = params.codec in (codec_mod.BSVD_CODEC, codec_mod.SCAB_CODEC)
+    by_codec = params.codec in (codec_mod.MEDRLE_CODEC, codec_mod.BSVD_CODEC,
+                                codec_mod.SCAB_CODEC)
     if not by_codec and params.codec not in compress_mod.WINDOWED_CODECS:
         raise NotImplementedError(
-            f"codec {params.codec}: encode_pages takes codecs 4/6/7/8, 11 "
-            "and 13 (codec 10 is ROADMAP.md Queue 1 item 3, codecs 1/2/3/12 "
-            "item 5)")
+            f"codec {params.codec}: encode_pages takes codecs 4/6/7/8, 10, "
+            "11 and 13 (codecs 1/2/3/12 are ROADMAP.md Queue 1 item 5)")
     pages = [np.asarray(p, dtype=bool) for p in pages]
     blobs: list[bytes] = [b""] * len(pages)
     for i, b in (done or {}).items():

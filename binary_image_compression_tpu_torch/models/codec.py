@@ -1,4 +1,5 @@
-"""BIC1 container: parameters, header, codecs 11 and 13, and decode.
+"""BIC1 container: parameters, header, codecs 10, 11 and 13, decode, and
+the grayscale (BICG) and color (BICC) containers.
 
 Counterpart of ``binary_image_compression_tpu/models/codec.py`` for the
 codecs the port covers: ``CodecParams`` with ``resolved_T``, ``MAGIC``,
@@ -12,10 +13,29 @@ windowed codecs 4/6/7/8, through the shared native decoder
 ``_decode_windowed`` (:459, with ``window_candidates`` :65 and ``_unmed``
 :188), for codec 11 (``_decode_bsvd`` :908, numpy on the host) and for
 codec 13 in both payload modes (``_decode_scab`` :1086, with
-``_decode_scab_rans`` :1121, native only).  Codec 8, and codec 13 with its
-context map on the device, are encoded by ``models/compress``.  The JAX
-package's pure-Python range coders are its fallback for a missing native
-library, which the port does not have, so they are not ported.
+``_decode_scab_rans`` :1121, native only).  Codec 10, full-image MED and
+adaptive exp-Golomb runs (``_medrle_runs`` :635, ``_encode_medrle`` :650,
+``_decode_medrle_payload`` :672), codes its runs with the native coder.
+Codec 8, and codec 13 with its context map on the device, are encoded by
+``models/compress``.  The JAX package's pure-Python range coders and its
+``_EGStream`` are its fallback for a missing native library, which the port
+does not have, so they are not ported.
+
+Grayscale (``encode_pgm`` :749, ``decode_pgm`` :808) and color
+(``encode_ppm`` :1221, ``decode_ppm`` :1238): one BIC1 stream per bitplane,
+after an optional gray code.  The backends are JAX's four under the port's
+names, ``device`` choosing the card or the CPU:
+
+    port               JAX                    the planes
+    "host"             "host"                 codec.encode per plane (the
+                                              default: the smaller of codec
+                                              13 and codec 10)
+    "device"           "tpu"                  codec 10: MED on the device,
+                                              native EG runs
+    "device-assembly"  "tpu-device-assembly"  codec 10: MED and kernel K8
+                                              on the device
+    "device-rans"      "tpu-rans"             codec 13 mode 2: the stack
+                                              through one K7 launch
 
 Container: magic "BIC1" | u32 crc32 of the packed image | u8 codec | u8
 flags (bit0 strict) | u16 W | u32 rows | u32 cols | u32 T | u32 R | payload.
@@ -24,8 +44,10 @@ flags (bit0 strict) | u16 W | u32 rows | u32 cols | u32 T | u32 R | payload.
 from __future__ import annotations
 
 import math
+import os
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -39,6 +61,7 @@ from ..ops.entropy import GolombCoder
 MAGIC = b"BIC1"
 HEADER_LEN = 28
 WINDOWED_CODECS = (4, 6, 7, 8)
+MEDRLE_CODEC = 10
 BSVD_CODEC = 11
 SCAB_CODEC = 13
 # the largest page a header may declare (JAX codec.py:425)
@@ -95,15 +118,18 @@ def _check_W(params) -> None:
 
 
 def encode(img: np.ndarray, params: CodecParams, *, device="cuda") -> bytes:
-    """Encode one page with codec 11, learning the dictionary on `device`
-    (cuda, or cpu for the plain kernels), or with codec 13 on the host (the
-    native coder with its own context scan; ``compress.encode_scab`` maps
-    the contexts on the device).  Codec 8 is ``compress.encode``."""
+    """Encode one page with codec 10 on the host (numpy MED, native EG
+    runs), with codec 11, learning the dictionary on `device` (cuda, or cpu
+    for the plain kernels), or with codec 13 on the host (the native coder
+    with its own context scan; ``compress.encode_scab`` maps the contexts
+    on the device).  Codec 8 is ``compress.encode``."""
+    if params.codec == MEDRLE_CODEC:
+        return _encode_medrle(np.asarray(img, dtype=bool))
     if params.codec == SCAB_CODEC:
         return _encode_scab(np.asarray(img, dtype=bool), params)
     if params.codec != BSVD_CODEC:
         raise NotImplementedError(
-            f"codec {params.codec}: codec.encode takes codecs 11 and 13; "
+            f"codec {params.codec}: codec.encode takes codecs 10, 11 and 13; "
             "codec 8 is compress.encode (codecs 4/7 are ROADMAP.md Queue 1 "
             "item 4)")
     _check_W(params)
@@ -250,10 +276,55 @@ def window_candidates(i0: int, j0: int, W: int, R: int,
     return out
 
 
+def _med(P: np.ndarray) -> np.ndarray:
+    """MED residual of a 0/1 page (JAX codec.py:179): each pixel XOR its up,
+    left and up-left neighbours, order-1 on the first row and column, and
+    r(0, 0) = P(0, 0) (DEVIATIONS.md 1)."""
+    r = np.zeros_like(P)
+    r[0, 1:] = P[0, 1:] ^ P[0, :-1]
+    r[1:, 0] = P[1:, 0] ^ P[:-1, 0]
+    r[1:, 1:] = P[1:, 1:] ^ P[:-1, 1:] ^ P[1:, :-1] ^ P[:-1, :-1]
+    r[0, 0] = P[0, 0]
+    return r
+
+
 def _unmed(r: np.ndarray) -> np.ndarray:
     """Inverse of the MED residual: XOR prefix along rows, then columns."""
     x = np.bitwise_xor.accumulate(r, axis=1)
     return np.bitwise_xor.accumulate(x, axis=0)
+
+
+def _medrle_runs(img: np.ndarray, residual: np.ndarray | None = None
+                 ) -> np.ndarray:
+    """Zero-run lengths of the MED residual in raster order, with the
+    trailing run when it is not empty: codec 10's symbols."""
+    if residual is None:
+        residual = _med(np.asarray(img, dtype=np.uint8))
+    flat = residual.ravel()
+    ones = np.flatnonzero(flat)
+    gaps = np.diff(np.concatenate([[-1], ones])) - 1
+    trailing = flat.size - (int(ones[-1]) + 1) if ones.size else flat.size
+    if trailing > 0:  # the decoder stops on the pixel count
+        gaps = np.concatenate([gaps, [trailing]])
+    return gaps.astype(np.int64)
+
+
+def _encode_medrle(img: np.ndarray,
+                   residual: np.ndarray | None = None) -> bytes:
+    """Codec 10: MED residual (numpy, or computed on the device and passed
+    in by ``compress.encode_planes_device``), its runs coded by the native
+    adaptive exp-Golomb coder."""
+    rows, cols = img.shape
+    params = CodecParams(codec=MEDRLE_CODEC, W=0, T=0, R=0)
+    hdr = _header(params, rows, cols, image_crc(img))
+    return hdr + native.eg_encode_runs(_medrle_runs(img, residual))
+
+
+def _decode_medrle_payload(payload: bytes, rows: int, cols: int
+                           ) -> np.ndarray:
+    """A codec-10 payload: the native EG decoder, then the inverse MED."""
+    flat = native.eg_decode_runs(payload, rows * cols)
+    return _unmed(flat.reshape(rows, cols).astype(bool))
 
 
 def _decode_windowed(r: BitReader, codec, W, rows, cols, R,
@@ -306,22 +377,21 @@ def _decode_windowed(r: BitReader, codec, W, rows, cols, R,
 def _check_header(codec: int, W: int, rows: int, cols: int) -> None:
     """Validate header fields, which come from an untrusted stream, before
     any decoder sizes a buffer from them or divides by W (the bounds of
-    JAX codec.py:419-433 for the codecs the port decodes; codec 13 has no
-    tiles, so its W is not bounded)."""
-    if codec not in WINDOWED_CODECS + (BSVD_CODEC, SCAB_CODEC):
+    JAX codec.py:419-433 for the codecs the port decodes; codecs 10 and 13
+    have no tiles, so their W is not bounded)."""
+    if codec not in WINDOWED_CODECS + (MEDRLE_CODEC, BSVD_CODEC, SCAB_CODEC):
         raise NotImplementedError(
-            f"codec {codec}: this port decodes codecs 4/6/7/8, 11 and 13 "
-            "only (codec 10 is ROADMAP.md Queue 1 item 3, codecs 1/2/3/12 "
-            "item 5)")
+            f"codec {codec}: this port decodes codecs 4/6/7/8, 10, 11 and 13 "
+            "only (codecs 1/2/3/12 are ROADMAP.md Queue 1 item 5)")
     if rows == 0 or cols == 0 or rows * cols > MAX_PIXELS:
         raise ValueError(f"implausible dimensions {rows}x{cols}")
-    if codec != SCAB_CODEC and not 1 <= W <= 64:
+    if codec not in (MEDRLE_CODEC, SCAB_CODEC) and not 1 <= W <= 64:
         raise ValueError(f"corrupt BIC1 header: W={W} out of range [1, 64] "
                          f"for codec {codec}")
 
 
 def decode(blob: bytes, *, verify_crc: bool = True) -> np.ndarray:
-    """Decode a BIC1 stream of codec 4/6/7/8, 11 or 13 to bool
+    """Decode a BIC1 stream of codec 4/6/7/8, 10, 11 or 13 to bool
     [rows, cols]."""
     if blob[:4] != MAGIC or len(blob) < HEADER_LEN:
         raise ValueError("not a BIC1 stream")
@@ -331,6 +401,8 @@ def decode(blob: bytes, *, verify_crc: bool = True) -> np.ndarray:
     r = BitReader(blob, bit_offset=HEADER_LEN * 8)
     if codec == SCAB_CODEC:
         out = _decode_scab(blob[HEADER_LEN:], rows, cols)
+    elif codec == MEDRLE_CODEC:
+        out = _decode_medrle_payload(blob[HEADER_LEN:], rows, cols)
     elif codec == BSVD_CODEC:
         out = _decode_bsvd(r, W, rows, cols)
     elif rows * cols > NATIVE_MAX_PIXELS:
@@ -341,3 +413,138 @@ def decode(blob: bytes, *, verify_crc: bool = True) -> np.ndarray:
     if verify_crc and image_crc(out) != crc:
         raise ValueError("BIC1 integrity check failed (corrupt stream)")
     return out
+
+
+# ---------------------------------------------------------------------------
+# grayscale (BICG) and color (BICC) containers
+# ---------------------------------------------------------------------------
+
+PGM_MAGIC = b"BICG"
+PPM_MAGIC = b"BICC"
+PGM_BACKENDS = ("host", "device", "device-assembly", "device-rans")
+
+
+def _encode_plane(plane, params: CodecParams, device) -> bytes:
+    """One plane under explicit parameters on the host, as JAX's
+    ``codec.encode`` writes it: the windowed codecs through the native host
+    encoder, the others through ``encode``."""
+    if params.codec in WINDOWED_CODECS:
+        from . import compress
+        _check_W(params)
+        return compress.host_encode(plane, params)
+    return encode(plane, params, device=device)
+
+
+def encode_pgm(gray: np.ndarray, maxval: int,
+               params: CodecParams | None = None, *,
+               gray_code: bool = True, backend: str = "host",
+               device="cuda") -> bytes:
+    """Grayscale codec: the bitplanes (``bitplanes.decompose``), one BIC1
+    stream each, in a BICG container.
+
+    gray_code=True codes g = v ^ (v >> 1), whose planes are smoother.
+    backend (module docstring): "host" codes each plane with `params`, or,
+    params None, with the smaller of codec 13 and codec 10; "device" and
+    "device-assembly" code the stack with codec 10 on `device` (params None
+    or codec 10; other codecs take the host); "device-rans" codes it with
+    codec 13 mode 2 on `device` (params of codec 13, else the defaults).
+
+    Layout: "BICG" | u8 n_planes | u8 gray_code | u16 maxval |
+    u32 len[n_planes] | the planes' BIC1 streams, LSB plane first."""
+    from ..utils import bitplanes
+    if backend not in PGM_BACKENDS:
+        raise ValueError(f"backend={backend!r}: one of {PGM_BACKENDS}")
+    gray = np.asarray(gray, dtype=np.uint32)
+    if gray_code:
+        gray = gray ^ (gray >> 1)
+    planes = bitplanes.decompose(gray, maxval)
+    if backend == "device-rans":
+        from . import compress
+        blobs = compress.encode_planes_rans(
+            planes, params if params is not None
+            and params.codec == SCAB_CODEC else None, device=device)
+    elif backend in ("device", "device-assembly") and (
+            params is None or params.codec == MEDRLE_CODEC):
+        from . import compress
+        blobs = compress.encode_planes_device(
+            planes, "device" if backend == "device-assembly" else "native",
+            device=device)
+    elif params is None:
+        # per plane, the smaller of the arithmetic and the run-length codec
+        cand = [CodecParams(codec=SCAB_CODEC, W=0, T=0, R=0),
+                CodecParams(codec=MEDRLE_CODEC, W=0)]
+        blobs = [min((encode(p, c) for c in cand), key=len) for p in planes]
+    else:
+        blobs = [_encode_plane(p, params, device) for p in planes]
+    out = bytearray(PGM_MAGIC)
+    out += struct.pack("<BBH", len(blobs), 1 if gray_code else 0, maxval)
+    for b in blobs:
+        out += struct.pack("<I", len(b))
+    for b in blobs:
+        out += b
+    return bytes(out)
+
+
+def decode_pgm(blob: bytes) -> tuple[np.ndarray, int]:
+    """A BICG stream -> (uint32 gray [rows, cols], maxval); the planes are
+    decoded across host threads (the native decoders drop the GIL)."""
+    from ..utils import bitplanes
+    if blob[:4] != PGM_MAGIC:
+        raise ValueError("not a BICG stream")
+    nplanes, gflag, maxval = struct.unpack("<BBH", blob[4:8])
+    lens = struct.unpack(f"<{nplanes}I", blob[8:8 + 4 * nplanes])
+    off = 8 + 4 * nplanes
+    spans = []
+    for ln in lens:
+        spans.append(blob[off:off + ln])
+        off += ln
+    workers = min(len(spans), os.cpu_count() or 1)
+    if workers > 1:
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            planes = list(ex.map(decode, spans))
+    else:
+        planes = [decode(s) for s in spans]
+    gray = bitplanes.recompose(np.stack(planes))
+    if gflag:
+        # inverse gray code: v = g ^ (g >> 1) ^ (g >> 2) ^ ...
+        v = gray.copy()
+        for shift in range(1, 32):
+            v ^= gray >> shift
+        gray = v
+    return gray, maxval
+
+
+def encode_ppm(rgb_packed: np.ndarray, maxval: int,
+               params: CodecParams | None = None, *,
+               backend: str = "host", device="cuda") -> bytes:
+    """Color codec: 0xRRGGBB-packed uint32 [rows, cols] (the reference's
+    pixel_t, pnm.cpp:214) -> a BICG stream per channel.
+
+    Layout: "BICC" | u16 maxval | u32 len[3] | the R, G, B BICG streams."""
+    img = np.asarray(rgb_packed, dtype=np.uint32)
+    chans = [(img >> 16) & 0xFF, (img >> 8) & 0xFF, img & 0xFF]
+    blobs = [encode_pgm(c, maxval, params, backend=backend, device=device)
+             for c in chans]
+    out = bytearray(PPM_MAGIC)
+    out += struct.pack("<H", maxval)
+    for b in blobs:
+        out += struct.pack("<I", len(b))
+    for b in blobs:
+        out += b
+    return bytes(out)
+
+
+def decode_ppm(blob: bytes) -> tuple[np.ndarray, int]:
+    """A BICC stream -> (0xRRGGBB-packed uint32 [rows, cols], maxval)."""
+    if blob[:4] != PPM_MAGIC:
+        raise ValueError("not a BICC stream")
+    (maxval,) = struct.unpack("<H", blob[4:6])
+    lens = struct.unpack("<3I", blob[6:18])
+    off = 18
+    chans = []
+    for ln in lens:
+        chans.append(decode_pgm(blob[off:off + ln])[0])
+        off += ln
+    r, g, b = chans
+    return (r.astype(np.uint32) << 16) | (g.astype(np.uint32) << 8) \
+        | b.astype(np.uint32), maxval

@@ -32,6 +32,15 @@ the host fetches them and concatenates bytes (``_serialize_scab_rans``
 :697).  Unlike the JAX package's device mode, the stripe count is
 re-derived from the stripe height, so no stripe is empty (its rows=6, T=4
 stream has an empty last stripe, which both decoders reject).
+
+Bitplane stacks (grayscale, JAX :743-930): the planes are uploaded packed
+and their MED residuals taken on the device (``med_planes``).  Codec 10
+(``encode_planes_device``): the residuals are fetched and the native EG
+coder codes their runs (assembly "native"), or kernel K8 (ops/egdevice)
+codes the whole stack on the device in one launch (assembly "device").
+Codec 13 mode 2 (``encode_planes_rans``): the context maps,
+counts and tables of the whole stack, batched, and one K7 launch for every
+stripe of every plane.
 """
 
 from __future__ import annotations
@@ -46,14 +55,15 @@ import numpy as np
 import torch
 
 from .. import native
-from ..ops import (bitpack, decide, fused_search, ransdevice, search,
-                   select_windows, strict)
+from ..ops import (bitpack, decide, egdevice, fused_search, predict,
+                   ransdevice, search, select_windows, strict)
 from ..ops._cuda import resolve_device
 from ..ops.bitstream import (BitWriter, enum_encode, enum_nbits,
                              golomb_encode, words_to_bytes)
 from ..ops.entropy import GolombCoder
-from .codec import (SCAB_CODEC, CodecParams, _check_W, _encode_scab, _header,
-                    image_crc, scab_stripes)
+from .codec import (MEDRLE_CODEC, SCAB_CODEC, CodecParams, _check_W,
+                    _encode_medrle, _encode_scab, _header, image_crc,
+                    scab_stripes)
 
 # pages the native host encoder took: causal R < W, strict shapes outside
 # strict.supported, strict archive pages (not a device launch)
@@ -410,22 +420,24 @@ _SCAB_TMPL = {
 
 def scab_ctx_map(bits: torch.Tensor, *, tmpl: int,
                  stripe_rows: int) -> torch.Tensor:
-    """Codec-13 context ids of every pixel: int16 [rows, cols].
+    """Codec-13 context ids of every pixel: int16 [..., rows, cols].
 
-    bits: 0/1 [rows, cols].  Template reads outside the page or above the
-    pixel's stripe top are 0: each stripe gets two zero rows above it and
-    the page three zero columns on each side, and every template bit is a
-    shifted view of that."""
-    rows, cols = bits.shape
+    bits: 0/1 [..., rows, cols], a page or a stack of them.  Template reads
+    outside the page or above the pixel's stripe top are 0: each stripe gets
+    two zero rows above it and the page three zero columns on each side, and
+    every template bit is a shifted view of that."""
+    rows, cols = bits.shape[-2:]
+    lead = bits.shape[:-2]
     S = -(-rows // stripe_rows)
     F = torch.nn.functional
     g = F.pad(bits.to(torch.int16), (0, 0, 0, S * stripe_rows - rows))
-    g = F.pad(g.reshape(S, stripe_rows, cols), (3, 3, 2, 0))
-    ctx = torch.zeros((S, stripe_rows, cols), dtype=torch.int16,
+    g = F.pad(g.reshape(lead + (S, stripe_rows, cols)), (3, 3, 2, 0))
+    ctx = torch.zeros(lead + (S, stripe_rows, cols), dtype=torch.int16,
                       device=bits.device)
     for dr, dc, bit in _SCAB_TMPL[tmpl]:
-        ctx |= g[:, 2 + dr:2 + dr + stripe_rows, 3 + dc:3 + dc + cols] << bit
-    return ctx.reshape(S * stripe_rows, cols)[:rows]
+        ctx |= g[..., 2 + dr:2 + dr + stripe_rows, 3 + dc:3 + dc + cols] << bit
+    ctx = ctx.reshape(lead + (S * stripe_rows, cols))[..., :rows, :]
+    return ctx.contiguous()       # K7 takes a stack's maps contiguous
 
 
 def scab_upload(img: np.ndarray, dev) -> torch.Tensor:
@@ -468,23 +480,32 @@ def scab_rans_page(bits: torch.Tensor, *, tmpl: int, stripe_rows: int,
 
 
 def fetch_rans_fields(out: dict) -> dict:
-    """The mode-2 fields on the host, in two copies: the small fields in
-    one int64 vector, then the word streams cut to the longest one."""
-    S, N = out["states"].shape
+    """The mode-2 fields of one page on the host (``fetch_rans_stack``)."""
+    return fetch_rans_stack({k: v[None] for k, v in out.items()})[0]
+
+
+def fetch_rans_stack(out: dict) -> list[dict]:
+    """The mode-2 fields of a stack of P pages on the host, in two copies:
+    the small fields in one int64 vector, then the word streams cut to the
+    longest one.  Returns one dict of numpy fields per page."""
+    P, S, N = out["states"].shape
     i64 = lambda t: t.reshape(-1).to(torch.int64)
     small = torch.cat([i64(out["transmit"]), i64(out["q_default"]),
                        bitpack.from_i32(out["states"]).reshape(-1),
                        i64(out["bits"]), i64(out["tab_words"]),
                        i64(out["tab_bits"]), i64(out["n_transmit"])])
     parts = np.split(small.cpu().numpy(), np.cumsum(
-        [ransdevice.PSCALE, 1, S * N, S, ransdevice.TABLE_WORDS, 1]))
-    f = dict(transmit=parts[0].astype(bool), q_default=int(parts[1][0]),
-             states=parts[2].reshape(S, N), bits=parts[3],
-             tab_words=parts[4], tab_bits=int(parts[5][0]),
-             n_transmit=int(parts[6][0]))
-    nw_max = max(1, max(-(-int(b) // 32) for b in f["bits"]))
-    f["words"] = out["words"][:, :nw_max].cpu().numpy().view(np.uint32)
-    return f
+        [P * ransdevice.PSCALE, P, P * S * N, P * S,
+         P * ransdevice.TABLE_WORDS, P]))
+    transmit = parts[0].astype(bool).reshape(P, -1)
+    states, nbits = parts[2].reshape(P, S, N), parts[3].reshape(P, S)
+    tab_words = parts[4].reshape(P, -1)
+    nw_max = max(1, -(-int(nbits.max()) // 32))
+    words = out["words"][..., :nw_max].cpu().numpy().view(np.uint32)
+    return [dict(transmit=transmit[i], q_default=int(parts[1][i]),
+                 states=states[i], bits=nbits[i], tab_words=tab_words[i],
+                 tab_bits=int(parts[5][i]), n_transmit=int(parts[6][i]),
+                 words=words[i]) for i in range(P)]
 
 
 def _encode_scab_device(img, params, tmpl, stripe_rows,
@@ -546,3 +567,83 @@ def _serialize_scab_rans(f: dict, tmpl, n_stripes, stripe_rows,
     for sb in streams:
         body += sb
     return bytes(body)
+
+
+# ---------------------------------------------------------------------------
+# bitplane stacks (grayscale; JAX compress.py:743-930)
+# ---------------------------------------------------------------------------
+
+def upload_planes(planes: np.ndarray, dev) -> torch.Tensor:
+    """bool [P, rows, cols] packed on the host and uploaded as int32
+    [P, rows, nwords(cols)]."""
+    return _upload(np.asarray(planes, dtype=bool), 1, dev)
+
+
+def med_planes(packed: torch.Tensor, cols: int) -> torch.Tensor:
+    """MED residuals of a packed plane stack int32 [P, rows, nw], on its
+    device (JAX ``med_planes`` :792, which packs first)."""
+    return predict.med_forward(packed, cols)
+
+
+def encode_planes_device(planes: np.ndarray, assembly: str = "device", *,
+                         device="cuda") -> list[bytes]:
+    """Codec-10 streams of a bitplane stack, each equal to
+    ``codec.encode(plane, CodecParams(codec=10))`` (JAX :864).
+
+    The stack is uploaded packed and its MED residuals taken on `device`.
+    assembly="native": the residuals are fetched and the native EG coder
+    codes their runs.  assembly="device": kernel K8 codes every plane of
+    the stack in one launch (``egdevice.eg_encode``; its plain version on
+    the CPU), the words are fetched and the host adds the headers.  JAX
+    sends planes past its run-array ladder to the native coder; K8 reads
+    the packed residual and has no run array, so every plane stays on
+    `device`."""
+    if assembly not in ("device", "native"):
+        raise ValueError(f"assembly={assembly!r}: 'device' or 'native'")
+    planes = np.asarray(planes, dtype=bool)
+    P, rows, cols = planes.shape
+    res = med_planes(upload_planes(planes, resolve_device(device)), cols)
+    if assembly == "native":
+        return _encode_planes_native(planes, res, cols)
+    words, nbits = egdevice.eg_encode(res, cols)
+    nbits = nbits.cpu().numpy()
+    tw = egdevice.payload_words(rows * cols)
+    if int(nbits.max()) > tw * 32:
+        raise RuntimeError(f"codec 10: a payload of {int(nbits.max())} bits "
+                           f"is past its buffer of {tw} words")
+    nw = max(1, -(-int(nbits.max()) // 32))
+    words = words[:, :nw].cpu().numpy().view(np.uint32)
+    params = CodecParams(codec=MEDRLE_CODEC, W=0, T=0, R=0)
+    return [_header(params, rows, cols, image_crc(planes[i]))
+            + words_to_bytes(words[i], int(nbits[i])) for i in range(P)]
+
+
+def _encode_planes_native(planes: np.ndarray, res: torch.Tensor,
+                          cols: int) -> list[bytes]:
+    """The residuals fetched, their runs coded by the native EG coder (JAX
+    :920)."""
+    res_bits = bitpack.np_unpack(res.cpu().numpy().view(np.uint32), cols)
+    return [_encode_medrle(planes[i], residual=res_bits[i].astype(np.uint8))
+            for i in range(planes.shape[0])]
+
+
+def encode_planes_rans(planes: np.ndarray, params: CodecParams | None = None,
+                       *, device="cuda") -> list[bytes]:
+    """Codec-13 mode-2 streams of a bitplane stack (JAX :751): the stack
+    uploaded packed and unpacked on `device`, its context maps, counts and
+    tables built there batched, one K7 launch for every stripe of every
+    plane (``ransdevice.rans_stack_encode``); the host serializes each
+    plane.  The stripe count is re-derived from the stripe height, as in
+    ``encode_scab``."""
+    planes = np.asarray(planes, dtype=bool)
+    P, rows, cols = planes.shape
+    params = params or CodecParams(codec=SCAB_CODEC, W=0, T=0, R=0)
+    tmpl, n_stripes, sr = scab_stripes(params, rows)
+    n_lanes = ransdevice.N_LANES_DEFAULT
+    bits = bitpack.unpack(upload_planes(planes, resolve_device(device)), cols)
+    ctx = scab_ctx_map(bits, tmpl=tmpl, stripe_rows=sr)
+    fields = fetch_rans_stack(ransdevice.rans_stack_encode(
+        bits, ctx, stripe_rows=sr, n_lanes=n_lanes))
+    return [_header(params, rows, cols, image_crc(planes[i]))
+            + _serialize_scab_rans(f, tmpl, n_stripes, sr, n_lanes)
+            for i, f in enumerate(fields)]

@@ -3,8 +3,10 @@
 Counterpart of ``binary_image_compression_tpu/native.py``, bound to the same
 source file but built into ``build/native/`` so the reference package's own
 library is left alone.  Bound: the codec-8 entry points (record packer,
-windowed decoder and host encoder, enumerative widths) and codec 13's
-(``bic_scab_encode``, ``bic_scab_decode``, ``bic_scab_rans_decode``).
+windowed decoder and host encoder, enumerative widths), codec 13's
+(``bic_scab_encode``, ``bic_scab_decode``, ``bic_scab_rans_decode``) and
+codec 10's adaptive exp-Golomb run coder (``bic_eg_encode_runs``,
+``bic_eg_decode_runs``).
 Unlike the reference bridge there is no pure-Python fallback: a failed
 build, load or call raises, and a decoder that rejects its stream raises
 ``ValueError``.
@@ -80,6 +82,14 @@ def _declare(lib) -> None:
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_uint16), ctypes.POINTER(ctypes.c_uint8),
         ctypes.c_long]
+    lib.bic_eg_encode_runs.restype = ctypes.c_long
+    lib.bic_eg_encode_runs.argtypes = [
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_long,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_long]
+    lib.bic_eg_decode_runs.restype = ctypes.c_int
+    lib.bic_eg_decode_runs.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
+        ctypes.POINTER(ctypes.c_uint8)]
     for name in ("bic_scab_decode", "bic_scab_rans_decode"):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -193,3 +203,30 @@ def scab_decode(body: bytes, rows: int, cols: int) -> np.ndarray:
 def scab_rans_decode(body: bytes, rows: int, cols: int) -> np.ndarray:
     """Decode a codec-13 mode-2 payload (``bic_scab_rans_decode``)."""
     return _scab_decode("bic_scab_rans_decode", body, rows, cols)
+
+
+def eg_encode_runs(runs: np.ndarray) -> bytes:
+    """Codec 10's payload (``bic_eg_encode_runs``): the adaptive
+    exp-Golomb codes of the zero-run lengths, MSB-first, byte-aligned."""
+    lib = get_lib()
+    runs = np.ascontiguousarray(runs, dtype=np.int64)
+    cap = int(runs.sum()) // 4 + 8 * len(runs) + 4096
+    out = np.zeros(cap, dtype=np.uint8)
+    n = lib.bic_eg_encode_runs(_p(runs, ctypes.c_int64), len(runs),
+                               _p(out, ctypes.c_uint8), cap)
+    if n < 0:
+        raise ValueError(f"bic_eg_encode_runs failed (rc={n}): a negative "
+                         f"run or a {cap} B buffer overflow")
+    return out[:n].tobytes()
+
+
+def eg_decode_runs(payload: bytes, n_pixels: int) -> np.ndarray:
+    """Decode a codec-10 payload (``bic_eg_decode_runs``) to the flat 0/1
+    uint8 residual of `n_pixels` pixels."""
+    out = np.zeros(n_pixels, dtype=np.uint8)
+    rc = get_lib().bic_eg_decode_runs(payload, len(payload), n_pixels,
+                                      _p(out, ctypes.c_uint8))
+    if rc != 0:
+        raise ValueError(f"bic_eg_decode_runs rejected the codec-10 payload "
+                         f"(rc={rc})")
+    return out

@@ -129,6 +129,8 @@ def _declare(lib) -> None:
     lib.bic_packed_pursuit.argtypes = [p] * 5 + [i] * 5 + [p]
     lib.bic_rans_encode.restype = i
     lib.bic_rans_encode.argtypes = [p] * 9 + [i] * 7 + [p]
+    lib.bic_eg_encode.restype = i
+    lib.bic_eg_encode.argtypes = [p] * 11 + [i] * 7 + [p]
 
 
 def resolve_device(device):

@@ -1,9 +1,10 @@
 """Codelengths and the adaptive Golomb-Rice context.
 
 Counterpart of ``lnchoose``, ``enum_codelength``, ``universal_codelength``,
-``universal_codelength_jnp`` (as ``universal_codelength_t``) and
-``GolombCoder`` in ``binary_image_compression_tpu/ops/entropy.py``
-(reference coding.cpp:19-32, Golomb.h:12-29, GolombCoder.cpp:13-34).
+``universal_codelength_jnp`` (as ``universal_codelength_t``),
+``GolombCoder`` and the adaptive exp-Golomb table ``EGLUT`` in
+``binary_image_compression_tpu/ops/entropy.py`` (reference coding.cpp:19-32,
+Golomb.h:12-29, GolombCoder.cpp:13-34, eg.cpp:2).
 """
 
 from __future__ import annotations
@@ -16,6 +17,12 @@ import torch
 COSMOS_LOG2E = 1.442695040888963387004650940070860087872  # coding.h:10
 
 _U32 = 0xFFFFFFFF
+
+# Adaptive exponential-Golomb run coder (codec 10): the remainder width g of
+# each of the 32 LUT states (eg.cpp:2), and the block size 2^g it consumes
+EGLUT = (0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3,
+         4, 4, 5, 5, 6, 6, 7, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+EG_BLOCKS = tuple(1 << g for g in EGLUT)
 
 
 def lnchoose(n: int, r: int) -> float:

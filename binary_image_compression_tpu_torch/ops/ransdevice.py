@@ -82,21 +82,21 @@ def _cost_bits(ones, zeros, p12):
 
 
 def build_table(ones: torch.Tensor, total: torch.Tensor):
-    """(q [4096] int32, transmit [4096] bool, q_default [] int32,
-    p_used [4096] int32).
+    """(q [..., 4096] int32, transmit [..., 4096] bool, q_default [...]
+    int32, p_used [..., 4096] int32), per page of a [..., 4096] batch.
 
     A context is transmitted iff its own quantized probability saves more
     than its 6-bit code and ~6 bits of bitmap over the page-wide default.
     The default's counts are summed as integers (JAX sums them in float32,
     the same value for pages below 2^24 pixels)."""
-    q_def = quantize_probs(ones.sum(), total.sum())
+    q_def = quantize_probs(ones.sum(-1), total.sum(-1))
     ones = ones.to(torch.float32)
     total = total.to(torch.float32)
     zeros = total - ones
     q = quantize_probs(ones, total)
     lut = torch.from_numpy(LOGIT64).to(q.device)
     p_own = lut[q]
-    p_def = lut[q_def]
+    p_def = lut[q_def].unsqueeze(-1)
     save = _cost_bits(ones, zeros, p_def) - _cost_bits(ones, zeros, p_own)
     transmit = (total > 0) & (save > CODE_BITS + 6.0)
     p_used = torch.where(transmit, p_own, p_def)
@@ -104,12 +104,16 @@ def build_table(ones: torch.Tensor, total: torch.Tensor):
 
 
 def count_contexts(ctx: torch.Tensor, bits: torch.Tensor):
-    """(ones [4096], total [4096]) int64 per-context bit counts: one
-    ``bincount`` of ctx * 2 + bit."""
-    v = torch.bincount(ctx.reshape(-1).to(torch.int64) * 2
-                       + bits.reshape(-1).to(torch.int64),
-                       minlength=2 * PSCALE).reshape(PSCALE, 2)
-    return v[:, 1], v[:, 0] + v[:, 1]
+    """(ones [..., 4096], total [..., 4096]) int64 per-context bit counts of
+    each page of ctx, bits [..., rows, cols]: one ``bincount`` of
+    page * 8192 + ctx * 2 + bit."""
+    lead = ctx.shape[:-2]
+    B = int(np.prod(lead, dtype=np.int64))
+    page = torch.arange(B, device=ctx.device)[:, None] * (2 * PSCALE)
+    v = torch.bincount((page + ctx.reshape(B, -1).to(torch.int64) * 2
+                        + bits.reshape(B, -1).to(torch.int64)).reshape(-1),
+                       minlength=B * 2 * PSCALE).reshape(lead + (PSCALE, 2))
+    return v[..., 1], v[..., 0] + v[..., 1]
 
 
 def table_lookup(table: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
@@ -380,28 +384,41 @@ def _launch(bits, ctx, p_used, *, stripe_rows: int, n_lanes: int):
 
 
 def pack_table(q: torch.Tensor, transmit: torch.Tensor):
-    """The table section: the 6-bit codes of the transmitted contexts in
-    ascending context order, as MSB-first words (int64 [768]) and their
-    bit count."""
+    """The table section of each page of a [..., 4096] batch: the 6-bit
+    codes of the transmitted contexts in ascending context order, as
+    MSB-first words (int64 [..., 768]) and their bit count."""
     return pack_varlen(q.to(torch.int64), transmit.to(torch.int64) * CODE_BITS,
                        TABLE_WORDS)
+
+
+def rans_stack_encode(bits, ctx, *, stripe_rows: int,
+                      n_lanes: int = N_LANES_DEFAULT) -> dict:
+    """The mode-2 payload's fields for a stack of P pages of one shape (JAX
+    vmaps ``rans_page_encode`` over a bitplane stack), on the device of
+    `bits`: the counts and tables batched [P, 4096] and one K7 launch for
+    every stripe of every page.
+
+    bits 0/1 [P, rows, cols]; ctx [P, rows, cols] from
+    ``compress.scab_ctx_map``.  Returns transmit [P, 4096], q_default [P],
+    states [P, S, N], words [P, S, Wcap], bits [P, S] (stream bit counts),
+    tab_words [P, 768], tab_bits [P] and n_transmit [P], as tensors."""
+    ones, total = count_contexts(ctx, bits)
+    q, transmit, q_def, p_used = build_table(ones, total)
+    states, words, nbits = rans_encode(
+        bits, ctx.to(torch.int16), p_used.to(torch.int16),
+        stripe_rows=stripe_rows, n_lanes=n_lanes)
+    tab_words, tab_bits = pack_table(q, transmit)
+    return dict(transmit=transmit, q_default=q_def, states=states,
+                words=words, bits=nbits, tab_words=tab_words,
+                tab_bits=tab_bits, n_transmit=transmit.sum(-1))
 
 
 def rans_page_encode(bits, ctx, *, stripe_rows: int,
                      n_lanes: int = N_LANES_DEFAULT) -> dict:
     """The mode-2 payload's fields for one page (JAX ``rans_page_encode``
-    :226), on the device of `bits`.
+    :226): ``rans_stack_encode`` of a stack of one, without its batch dim.
 
-    bits 0/1 [rows, cols]; ctx [rows, cols] from ``compress.scab_ctx_map``.
-    Returns transmit, q_default, states [S, N], words [S, Wcap], bits [S]
-    (stream bit counts), tab_words, tab_bits and n_transmit, as tensors."""
-    ones, total = count_contexts(ctx, bits)
-    q, transmit, q_def, p_used = build_table(ones, total)
-    states, words, nbits = rans_encode(
-        bits[None], ctx.to(torch.int16)[None],
-        p_used.to(torch.int16)[None], stripe_rows=stripe_rows,
-        n_lanes=n_lanes)
-    tab_words, tab_bits = pack_table(q, transmit)
-    return dict(transmit=transmit, q_default=q_def, states=states[0],
-                words=words[0], bits=nbits[0], tab_words=tab_words,
-                tab_bits=tab_bits, n_transmit=transmit.sum())
+    bits 0/1 [rows, cols]; ctx [rows, cols] from ``compress.scab_ctx_map``."""
+    out = rans_stack_encode(bits[None], ctx[None], stripe_rows=stripe_rows,
+                            n_lanes=n_lanes)
+    return {k: v[0] for k, v in out.items()}

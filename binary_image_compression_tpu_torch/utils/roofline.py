@@ -33,6 +33,11 @@ lane's steps depend on the one before.  ``rans_work`` gives its bytes and
 its chain floor, the steps times the least latency of one step's
 dependent instructions on one lane (``RANS_STEP_DEPENDENT_OPS`` of them,
 ``ALU_DEPENDENT_CLOCKS`` each, at the boost clock).
+
+K8, codec 10's adaptive exp-Golomb coder, reads a packed residual plane
+and writes its payload; the order of the runs is a composition of 32-state
+maps, whose least chain is a scan of ceil(log2(runs)) levels, each
+``EG_COMPOSE_DEPENDENT_OPS`` dependent operations.  ``eg_work`` gives both.
 """
 
 from __future__ import annotations
@@ -52,6 +57,9 @@ ALU_DEPENDENT_CLOCKS = 4
 # multiply-subtract (remainder), compare and fix-up, then shift-add and add
 # (the new state)
 RANS_STEP_DEPENDENT_OPS = 10
+# one level of a scan of (32-state map, code length) pairs: the map read at
+# the entering state, and the length read there and added
+EG_COMPOSE_DEPENDENT_OPS = 2
 
 
 def bound_ms(*, popcounts: int = 0, nbytes: int = 0) -> tuple[float, str]:
@@ -177,5 +185,22 @@ def rans_work(pixels: int, steps: int, S: int, N: int,
     out = 2 * pixels if out_bytes is None else out_bytes
     nbytes = 3 * pixels + 2 * 4096 + 4 * S * N + out
     floor_ms = (steps * RANS_STEP_DEPENDENT_OPS * ALU_DEPENDENT_CLOCKS
+                / H100_CLOCK_HZ * 1e3)
+    return nbytes, floor_ms
+
+
+def eg_work(n_pixels: int, n_runs: int, payload_bits: int,
+            planes: int = 1) -> tuple[int, float]:
+    """K8 on `planes` residual planes of n_pixels each (n_runs and
+    payload_bits summed over them): (bytes, chain floor in ms).  Bytes:
+    the packed residual read once (rows padded to whole words are not
+    counted: at most 4 B a row more), the payload words and a bit count
+    (8 B) per plane written once.  The chain floor: a scan of the runs' maps
+    in ceil(log2(runs a plane)) levels, each EG_COMPOSE_DEPENDENT_OPS x
+    ALU_DEPENDENT_CLOCKS clocks."""
+    nbytes = planes * (-(-n_pixels // 8) + 8) + 4 * -(-payload_bits // 32)
+    per_plane = max(2, -(-n_runs // max(1, planes)))
+    levels = (per_plane - 1).bit_length()
+    floor_ms = (levels * EG_COMPOSE_DEPENDENT_OPS * ALU_DEPENDENT_CLOCKS
                 / H100_CLOCK_HZ * 1e3)
     return nbytes, floor_ms

@@ -10,8 +10,11 @@ on planted inputs up to a letter page's 33,120 patches, and K7, codec 13's
 interleaved-rANS encode, on random tables, the densest emission at 1, 33
 and 255 lanes, three pages in one launch, every codec-13 case of the CPU
 tests and a letter page, and on doc512 also against its stream-order
-twin) against its plain PyTorch version on the card, then
-drives the port's five paths, each with
+twin, and K8, codec 10's adaptive exp-Golomb coder, on residual planes
+from empty to full, odd widths, both first-run cases, run counts at each
+rung of the capacity ladder that sizes its plain version's run array, and
+the whole stacks of the bench page, a letter page and a noisy page) against its plain PyTorch version on the card, then
+drives the port's paths, each with
 the launch counts reset just before it and read just after: the causal
 encode (one 512x512 page, then a 64-page corpus through the archive
 writer), strict mode (``encode_strict`` on a 512x512 and a 512x2048
@@ -23,14 +26,23 @@ at K = 512, with a spy showing that each packed pursuit on the card was one
 launch of the pursuit kernel, with no K5 or K6 launch and no host sync)
 and codec 13 (``encode_scab`` in both entropy modes on doc512 and the
 letter page, one K7 launch per device-entropy encode, with a spy showing
-that the plain rANS loop ran on no CUDA tensor).  Every codec-8 stream is
-checked byte for byte against the native host encoder, the codec-11 stream
-and codec 13's device-entropy streams against the same encode on the
-CPU, codec 13's host-entropy streams against the native coder's own
+that the plain rANS loop ran on no CUDA tensor) and grayscale
+(``encode_pgm`` of the JAX bench stack, a 3300x2550 8-bit letter page and
+a noisy 512x512 page whose low plane is past the ladder, and
+``encode_ppm`` of an RGB page, in each device backend: one K8 launch per
+stack on "device-assembly" and none elsewhere, one K7 launch per stack on
+"device-rans"; codec 10
+== the host route byte for byte, the bench stack at 104,658 B with codec
+10 and 76,918 B with rANS, every stream decoding to its page).  Every
+codec-8 stream is checked byte for byte against the native host encoder,
+the codec-11 stream and codec 13's device-entropy streams against the same
+encode on the CPU, codec 13's host-entropy streams against the native coder's own
 context scan, and each is round-tripped; stages and kernels are timed with CUDA
 events (K1's, K2's, K3's and K4's kernels also by torch.profiler's device
 times; the W = 16 and W = 64 encodes split into stages),
-K7 also at 1, 8 and 32 pages a launch and in clocks a step,
+K7 also at 1, 8 and 32 pages a launch and in clocks a step, the
+grayscale stages (MED, run counts, K8, the K7 stack, fetches) and
+``encode_pgm`` end to end per backend,
 and each kernel's time is printed beside its least time on the card
 (``utils/roofline``) and, for K1's plane, K5 and K6, the one PyTorch call
 that computes the same function; the pursuit kernel also beside the sweep
@@ -1538,6 +1550,248 @@ def scab_times(compress, codec, rd, bitpack, pnm, roofline, dev, gpu):
     return figures["doc512"]
 
 
+# codec 10 and codec 13 mode 2 on the JAX bench stack (JAX bench.py:522,
+# BENCH.json pgm8_bytes / pgm8_rans_bytes)
+GRAY_BYTES = {"codec 10": 104658, "rans": 76918}
+GRAY_BACKENDS = ("device", "device-assembly", "device-rans")
+
+
+def gray_page(img: np.ndarray) -> np.ndarray:
+    """The JAX bench's 8-bit page from a bilevel one: cumsum along rows,
+    times 7, mod 256 (bench.py:522)."""
+    return (np.cumsum(img, axis=1) * 7 % 256).astype(np.uint32)
+
+
+def gray_cases(pnm) -> list:
+    """(name, 8-bit page): the bench stack (doc512), a 300-dpi US letter
+    page made gray the same way, and the bench page with random low two
+    bits, a scan's noise, whose gray-coded low plane has a dense MED
+    residual (JAX sends it past its run-array ladder to the native coder)."""
+    doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
+    g = gray_page(doc)
+    noise = np.random.RandomState(12).randint(0, 4, g.shape).astype(np.uint32)
+    return [("bench 512x512", g),
+            ("letter 3300x2550", gray_page(letter_page(doc))),
+            ("noisy 512x512", g ^ noise)]
+
+
+def gray_residuals(compress, bitplanes, gray, dev):
+    """The page's gray-coded planes (host) and their MED residuals on the
+    card, as ``encode_planes_device`` makes them."""
+    planes = bitplanes.decompose(gray ^ (gray >> 1), 255)
+    res = compress.med_planes(compress.upload_planes(planes, dev),
+                              planes.shape[2])
+    return planes, res
+
+
+def check_k8(eg, compress, bitplanes, pnm, dev) -> int:
+    """K8 == ``eg_encode_plain`` (torch.nonzero runs, the transition maps,
+    the composition scan, pack_varlen) on the same CUDA tensors, word for
+    word and bit count for bit count: residual planes at densities 0 to 1,
+    odd widths, a first run of 0 and of 7, run counts at each rung of
+    ``run_cap`` (and one past it), and the whole stacks of the bench page,
+    the letter page and the noisy page, whose low plane is past the ladder.
+    Returns the worst error."""
+    worst = 0
+
+    def one(name, res, cols):
+        nonlocal worst
+        got = eg._launch(res, cols)
+        want = eg.eg_encode_plain(res, cols)
+        torch.cuda.synchronize()
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got, want))
+        P, rows, _ = res.shape
+        runs = int(eg.run_counts(res, cols).sum())
+        log(f"K8 {name}: P={P} {rows}x{cols} runs={runs} payload "
+            f"{int(got[1].sum()) // 8} B max_abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"K8 disagrees with its plain version on "
+                                 f"{name}")
+        worst = max(worst, err)
+
+    def up(bits):
+        return compress.upload_planes(bits, dev)
+
+    rs = np.random.RandomState(10)
+    for d in (0.0, 0.02, 0.3, 0.5, 0.9, 1.0):
+        one(f"density {d}", up(rs.rand(1, 512, 512) < d), 512)
+    for rows, cols in ((33, 61), (75, 101)):
+        one("odd width", up(rs.rand(2, rows, cols) < np.array(
+            [0.1, 0.3])[:, None, None]), cols)
+    for first in (0, 7):
+        bits = rs.rand(1, 256, 256) < 0.05
+        bits.reshape(-1)[:first + 1] = False
+        bits.reshape(-1)[first] = True
+        one(f"first run {first}", up(bits), 256)
+    n = 512 * 512
+    rungs = [eg.run_cap(n, 0), eg.run_cap(n, 0) + 1,
+             eg.run_cap(n, 1), eg.run_cap(n, 1) + 1]
+    bits = np.zeros((4, n), bool)
+    for i, runs in enumerate(rungs):   # runs - 1 ones, the last pixel 0
+        bits[i, rs.choice(n - 1, runs - 1, replace=False)] = True
+    res = up(bits.reshape(4, 512, 512))
+    got = eg.run_counts(res, 512).cpu().numpy()
+    if list(got) != rungs:
+        raise AssertionError(f"run counts {list(got)} != the rungs {rungs}")
+    one(f"run counts {rungs}", res, 512)
+    for name, gray in gray_cases(pnm):
+        _, res = gray_residuals(compress, bitplanes, gray, dev)
+        rows, cols = gray.shape
+        counts = eg.run_counts(res, cols).tolist()   # plane 0 the lowest
+        if name.startswith("noisy") and counts[0] <= eg.run_cap(rows * cols,
+                                                                1):
+            raise AssertionError(f"{name}: the low plane's {counts[0]} runs "
+                                 f"are not past the ladder")
+        one(f"{name} stack (runs per plane {counts})", res, cols)
+    return worst
+
+
+def gray_path(codec, pnm, backend: str):
+    """Grayscale as a user calls it: ``encode_pgm`` of the bench stack, the
+    letter page and the noisy page, and ``encode_ppm`` of an RGB page of three bench-like
+    channels, with `backend` on the card; each stream decodes to its
+    input, codec 10 == the host route (numpy MED, native EG) byte for byte,
+    the bench stack at the JAX package's size.  Returns the K7 stacks it
+    coded (device-rans: one per page, three per color page)."""
+    p10 = codec.CodecParams(codec=10, W=0, T=0, R=0)
+    params = None if backend == "device-rans" else p10
+    what = "rans" if backend == "device-rans" else "codec 10"
+    stacks = 0
+    for name, gray in gray_cases(pnm):
+        t0 = time.perf_counter()
+        blob = codec.encode_pgm(gray, 255, params, backend=backend,
+                                device="cuda")
+        t = time.perf_counter() - t0
+        stacks += 1
+        if backend != "device-rans" and blob != codec.encode_pgm(
+                gray, 255, p10, backend="host"):
+            raise AssertionError(f"{name} ({backend}) != the host codec-10 "
+                                 f"stream")
+        if name.startswith("bench") and len(blob) != GRAY_BYTES[what]:
+            raise AssertionError(f"{name} ({backend}) is {len(blob)} B, not "
+                                 f"{GRAY_BYTES[what]}")
+        back, maxval = codec.decode_pgm(blob)
+        if maxval != 255 or not np.array_equal(back, gray):
+            raise AssertionError(f"{name} ({backend}) does not decode")
+        log(f"gray: {name} backend={backend} -> {len(blob)} B ({what}), "
+            f"decodes{', == host codec 10' if what == 'codec 10' else ''} "
+            f"({t * 1e3:.1f} ms wall, first call)")
+    g = gray_cases(pnm)[0][1]
+    rgb = (g << 16) | (np.roll(g, 100, axis=1) << 8) | g.T
+    blob = codec.encode_ppm(rgb, 255, params, backend=backend, device="cuda")
+    stacks += 3
+    if backend != "device-rans" and blob != codec.encode_ppm(rgb, 255, p10):
+        raise AssertionError(f"RGB ({backend}) != the host codec-10 stream")
+    back, maxval = codec.decode_ppm(blob)
+    if maxval != 255 or not np.array_equal(back, rgb):
+        raise AssertionError(f"RGB ({backend}) does not decode")
+    log(f"color: RGB 512x512 backend={backend} -> {len(blob)} B, decodes")
+    return stacks
+
+
+def gray_drives(codec, pnm, _cuda) -> dict:
+    """The three device backends, each driven with the launch counts reset:
+    one K8 launch per stack on device-assembly (every plane, the noisy
+    page's dense low plane included, coded by K8) and none on the other
+    routes, one K7 launch per stack on device-rans and none on the codec-10
+    routes."""
+    counts = {}
+    for backend in GRAY_BACKENDS:
+        stacks = []
+        needs = {"device": (), "device-assembly": ("eg_encode",),
+                 "device-rans": ("rans_encode",)}[backend]
+        c = drive(f"gray {backend}", lambda: stacks.append(
+            gray_path(codec, pnm, backend)), _cuda, needs)
+        k8, k7 = c.get("eg_encode", 0), c.get("rans_encode", 0)
+        if k8 != (stacks[0] if backend == "device-assembly" else 0):
+            raise AssertionError(f"{k8} K8 launches for {stacks[0]} stacks "
+                                 f"on the {backend} route")
+        if k7 != (stacks[0] if backend == "device-rans" else 0):
+            raise AssertionError(f"{k7} K7 launches for {stacks[0]} stacks "
+                                 f"on the {backend} route")
+        counts[backend] = c
+    return counts
+
+
+def gray_times(codec, compress, eg, rd, bitpack, bitplanes, pnm, roofline,
+               dev, gpu):
+    """The grayscale stages on each gray page: upload, MED, K8 (one launch
+    for the stack; CUDA events and torch.profiler), the words' fetch, the K7
+    stack's stages and its fetch, then ``encode_pgm`` end to end per backend
+    (host clock).  K8 beside its plain version and its bound
+    (``roofline.eg_work``).  Returns the bench stack's kernels-line figures
+    for K8, per launch: one launch codes the 8-plane stack."""
+    figures = {}
+    for (name, gray), reps in zip(gray_cases(pnm), (10, 3, 10)):
+        rows, cols = gray.shape
+        n = rows * cols
+        planes = bitplanes.decompose(gray ^ (gray >> 1), 255)
+        P = planes.shape[0]
+        st = {}
+        st["upload"] = host_ms(lambda: compress.upload_planes(planes, dev),
+                               reps)
+        packed = compress.upload_planes(planes, dev)
+        st["MED"] = cuda_ms(lambda: compress.med_planes(packed, cols), reps)
+        res = compress.med_planes(packed, cols)
+        call = lambda: eg.eg_encode(res, cols)
+        k8 = cuda_ms(call, reps)
+        k8d = device_ms(call, "k8_", reps)
+        plain = cuda_ms(lambda: eg.eg_encode_plain(res, cols), 1)
+        words, nbits = call()
+        nw = max(1, -(-int(nbits.max()) // 32))
+        st[f"K8 ({P} planes, 1 launch)"] = k8
+        st["fetch (K8 words)"] = host_ms(lambda: words[:, :nw].cpu(), reps)
+        runs = int(eg.run_counts(res, cols).sum())
+        nbytes, floor = roofline.eg_work(n, runs, int(nbits.sum()), planes=P)
+        bound = roofline.bound_ms(nbytes=nbytes)
+        if floor > bound[0]:
+            bound = (floor, "operations")
+        log(f"K8 {name}: {P} planes in one launch, {runs} runs, {k8:.4f} ms "
+            f"per launch (events), device {nd(k8d)} (torch.profiler, 5 "
+            f"kernels); bound {bound[0]:.6f} ms ({bound[1]}: {nbytes} B; the "
+            f"scan's chain floor {floor:.6f} ms); plain {plain:.3f} ms "
+            f"[{gpu}]")
+        figures[name] = (k8, plain, bound, None)
+        tmpl, S, sr = codec.scab_stripes(
+            codec.CodecParams(codec=13, W=0, T=0, R=0), rows)
+        bits_t = bitpack.unpack(packed, cols)
+        st["unpack (rans)"] = cuda_ms(lambda: bitpack.unpack(packed, cols),
+                                      reps)
+        st["context maps"] = cuda_ms(
+            lambda: compress.scab_ctx_map(bits_t, tmpl=tmpl,
+                                          stripe_rows=sr), reps)
+        ctx = compress.scab_ctx_map(bits_t, tmpl=tmpl, stripe_rows=sr)
+        st["counts + tables"] = cuda_ms(
+            lambda: rd.build_table(*rd.count_contexts(ctx, bits_t)), reps)
+        p_used = rd.build_table(*rd.count_contexts(ctx, bits_t))[3]
+        a = (bits_t, ctx.to(torch.int16), p_used.to(torch.int16))
+        st["K7 stack (1 launch)"] = cuda_ms(
+            lambda: rd.rans_encode(*a, stripe_rows=sr), reps)
+        dk7 = device_ms(lambda: rd.rans_encode(*a, stripe_rows=sr),
+                        "rans_encode_kernel", reps)
+        out = rd.rans_stack_encode(bits_t, ctx, stripe_rows=sr)
+        st["fetch (rans)"] = host_ms(lambda: compress.fetch_rans_stack(out),
+                                     reps)
+        log(f"gray stages, {name} ({P} planes) [{gpu}]: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in st.items())
+            + f"; K7 stack device {nd(dk7)}")
+        e2e = {}
+        p10 = codec.CodecParams(codec=10, W=0, T=0, R=0)
+        for backend in GRAY_BACKENDS:
+            params = None if backend == "device-rans" else p10
+            e2e[backend] = host_ms(lambda: codec.encode_pgm(
+                gray, 255, params, backend=backend, device="cuda"), reps)
+        e2e["host (numpy MED, native EG)"] = host_ms(
+            lambda: codec.encode_pgm(gray, 255, p10), reps)
+        e2e["decode_pgm (codec 10)"] = host_ms(lambda: codec.decode_pgm(
+            codec.encode_pgm(gray, 255, p10, backend="device",
+                             device="cuda")), 1)
+        log(f"encode_pgm end to end, {name} [{gpu}]: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in e2e.items()))
+    return figures["bench 512x512"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -1547,6 +1801,7 @@ def main() -> int:
     from binary_image_compression_tpu_torch.models import (archive, bsvd,
                                                            codec, compress)
     from binary_image_compression_tpu_torch.ops import _cuda, bitpack
+    from binary_image_compression_tpu_torch.ops import egdevice as eg
     from binary_image_compression_tpu_torch.ops import decide as dc
     from binary_image_compression_tpu_torch.ops import fused_search as fs
     from binary_image_compression_tpu_torch.ops import packed_dist as pd
@@ -1554,7 +1809,8 @@ def main() -> int:
     from binary_image_compression_tpu_torch.ops import search
     from binary_image_compression_tpu_torch.ops import select_windows as sw
     from binary_image_compression_tpu_torch.ops import strict as st
-    from binary_image_compression_tpu_torch.utils import pnm, roofline
+    from binary_image_compression_tpu_torch.utils import (bitplanes, pnm,
+                                                          roofline)
 
     dev = torch.device("cuda", 0)
     gpu = card()
@@ -1585,6 +1841,7 @@ def main() -> int:
     err6 = check_k6(pd, bsvd, dev)
     err_p, letter = check_pursuit(pd, bsvd, dev)
     err7 = check_k7(rd, compress, codec, pnm, dev)
+    err8 = check_k8(eg, compress, bitplanes, pnm, dev)
 
     causal = drive("causal", lambda: main_path(compress, archive, codec,
                                                native, pnm),
@@ -1606,6 +1863,7 @@ def main() -> int:
     if scab["rans_encode"] != 2:
         raise AssertionError(f"{scab['rans_encode']} rans_encode launches "
                              f"for 2 mode-2 encodes")
+    gray = gray_drives(codec, pnm, _cuda)
 
     img, _, out = stage_times(compress, fs, bitpack, codec, pnm, dev, gpu)
     kt = kernel_times(compress, fs, dc, roofline, img, out, serial, dev,
@@ -1615,6 +1873,8 @@ def main() -> int:
     k5, k5p, k6, k6p, lib5, lib6, pur = bsvd_times(codec, bsvd, pd, pnm,
                                                    roofline, letter, dev, gpu)
     k7t = scab_times(compress, codec, rd, bitpack, pnm, roofline, dev, gpu)
+    k8t = gray_times(codec, compress, eg, rd, bitpack, bitplanes, pnm,
+                     roofline, dev, gpu)
     pops5, bytes5 = roofline.k5_work(1024, 64, 8)
     pops6, bytes6 = roofline.k6_work(1024, 8)
     b5 = roofline.bound_ms(popcounts=pops5, nbytes=bytes5)
@@ -1650,6 +1910,10 @@ def main() -> int:
               err_p, pur[0], pur[2], pur[3], None),
         entry("rans_encode", "rans_encode.cu", "ransdevice.py:167",
               scab["rans_encode"], err7, *k7t),
+        dict(entry("eg_encode", "eg_encode.cu", "egdevice.py:106",
+                   gray["device-assembly"]["eg_encode"], err8, *k8t),
+             note="ms, plain_ms and bound_ms per launch: one launch codes "
+                  "the 8-plane 512x512 bench stack"),
     ]
     log(json.dumps({"kernels": kernels}))
     log(card())

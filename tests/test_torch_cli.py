@@ -104,6 +104,74 @@ def test_cli_codec_auto_keeps_the_smaller(tmp_path, capsys, name, mode):
     np.testing.assert_array_equal(jcodec.decode(blob), img)
 
 
+def _small_ppm(path):
+    rs = np.random.RandomState(11)
+    ch = [(np.abs(np.cumsum(rs.randn(24, 40), axis=1)) * 9).astype(
+        np.uint32) % 256 for _ in range(3)]
+    pnm.write_ppm((ch[0] << 16) | (ch[1] << 8) | ch[2], 255, path)
+    return path
+
+
+@pytest.mark.parametrize("argv", [[], ["--codec", "10"],
+                                  ["--entropy", "device"]])
+@pytest.mark.parametrize("kind", ["pgm", "ppm"])
+def test_cli_gray_and_color_equal_jax_cli(tmp_path, argv, kind):
+    """compress of gray64.pgm and a small PPM writes the JAX CLI's bytes
+    for the same flags (bare: per-plane best of codecs 13 and 10; --codec
+    10; --entropy device: codec 13 mode 2); decompress writes the file
+    back."""
+    from binary_image_compression_tpu import cli as jcli
+    src = (os.path.join(FIX, "gray64.pgm") if kind == "pgm"
+           else _small_ppm(str(tmp_path / "c.ppm")))
+    bic, jbic = str(tmp_path / "a.bic"), str(tmp_path / "j.bic")
+    out = str(tmp_path / f"b.{kind}")
+    cli.main(["compress", src, bic, *argv, "--device", "cpu"])
+    jcli.main(["compress", src, jbic, *argv])
+    with open(bic, "rb") as f1, open(jbic, "rb") as f2:
+        blob = f1.read()
+        assert blob == f2.read()
+    assert blob[:4] == (b"BICG" if kind == "pgm" else b"BICC")
+    cli.main(["decompress", bic, out])
+    with open(src, "rb") as f1, open(out, "rb") as f2:
+        assert f1.read() == f2.read()
+
+
+def test_cli_codec10_pbm_round_trip(tmp_path):
+    src = os.path.join(FIX, "text64.pbm")
+    bic, out = str(tmp_path / "a.bic"), str(tmp_path / "b.pbm")
+    cli.main(["compress", src, bic, "--codec", "10", "--device", "cpu"])
+    img = pnm.read_pbm(src)
+    with open(bic, "rb") as f:
+        assert f.read() == jcodec.encode(img, jcodec.CodecParams(codec=10,
+                                                                 W=0))
+    cli.main(["decompress", bic, out])
+    with open(src, "rb") as f1, open(out, "rb") as f2:
+        assert f1.read() == f2.read()
+
+
+def test_cli_bitplanes_planes2pgm_round_trip(tmp_path, capsys):
+    """bitplanes writes the JAX CLI's PBMs; planes2pgm puts them back
+    together, maxval the final mask as in plane2pgm_tool."""
+    from binary_image_compression_tpu import cli as jcli
+    src = os.path.join(FIX, "gray64.pgm")
+    pre, jpre = str(tmp_path / "p_"), str(tmp_path / "j_")
+    cli.main(["bitplanes", src, "--prefix", pre])
+    jcli.main(["bitplanes", src, "--prefix", jpre])
+    assert "wrote 8 planes" in capsys.readouterr().out
+    for i in range(8):
+        with open(f"{pre}{i:02d}.pbm", "rb") as f1, \
+                open(f"{jpre}{i:02d}.pbm", "rb") as f2:
+            assert f1.read() == f2.read()
+    out = str(tmp_path / "back.pgm")
+    cli.main(["planes2pgm", pre, out])
+    gray, maxval = pnm.read_pnm(src)
+    back, m = pnm.read_pnm(out)
+    np.testing.assert_array_equal(back, gray)
+    assert m == 255
+    with pytest.raises(SystemExit, match="no "):
+        cli.main(["planes2pgm", str(tmp_path / "none_"), out])
+
+
 def _port_modules():
     mods = []
     for root, _, files in os.walk(PKG):

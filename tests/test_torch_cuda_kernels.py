@@ -1,8 +1,8 @@
-"""K1-K7 and the BSVD pursuit kernel on the card against their plain
+"""K1-K8 and the BSVD pursuit kernel on the card against their plain
 PyTorch versions, the port's
 causal and strict encodes on the card against the native host encoder, and
-codec 11, codec 13 (both payload modes) and BSVD learning on the card
-against the CPU run.
+codec 11, codec 13 (both payload modes), the grayscale backends and BSVD
+learning on the card against the CPU run.
 
 Needs an NVIDIA GPU with nvcc (marked ``cuda``; skipped without one).  The
 file imports no JAX, so on a machine without JAX it runs on its own:
@@ -21,7 +21,8 @@ from binary_image_compression_tpu_torch.models import bsvd, codec, compress
 from binary_image_compression_tpu_torch.ops import _cuda
 from binary_image_compression_tpu_torch.ops import decide as dc
 from binary_image_compression_tpu_torch.ops import fused_search as fs
-from binary_image_compression_tpu_torch.ops import packed_dist, ransdevice
+from binary_image_compression_tpu_torch.ops import (bitpack, egdevice,
+                                                    packed_dist, ransdevice)
 from binary_image_compression_tpu_torch.ops import search
 from binary_image_compression_tpu_torch.ops import select_windows as sw
 from binary_image_compression_tpu_torch.ops import strict
@@ -449,3 +450,72 @@ def test_codec13_on_card_matches_cpu(dev, name, T, entropy):
     assert got == compress.encode_scab(img, p, entropy=entropy,
                                        device="cpu")
     np.testing.assert_array_equal(codec.decode(got), img)
+
+
+# (planes, rows, cols, density, first one): odd widths, a first run of 0
+# and of >= 1, empty and full residuals, one block and many
+K8_CASES = [(1, 64, 96, 0.02, None), (2, 33, 61, 0.5, None),
+            (3, 75, 101, 0.1, None), (1, 180, 100, 0.05, 0),
+            (1, 180, 100, 0.05, 5), (2, 300, 64, 0.0, None),
+            (1, 32, 32, 1.0, None), (4, 512, 512, 0.2, None)]
+
+
+@pytest.mark.parametrize("P,rows,cols,dens,first", K8_CASES)
+def test_k8_kernel_matches_plain(dev, P, rows, cols, dens, first):
+    rs = np.random.RandomState(rows * cols + P)
+    res = rs.rand(P, rows, cols) < dens
+    if first is not None:
+        res.reshape(P, -1)[:, :first + 1] = False
+        res.reshape(P, -1)[:, first] = True
+    r = torch.from_numpy(bitpack.np_pack(res).view(np.int32)).to(dev)
+    before = _cuda.launches["eg_encode"]
+    got = egdevice.eg_encode(r, cols)
+    assert _cuda.launches["eg_encode"] == before + 1
+    want = egdevice.eg_encode_plain(r, cols)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_k7_stack_one_launch_matches_pages(dev):
+    """A stack of 8 planes in one K7 launch == rans_page_encode of each
+    (250 rows: the last stripe is short)."""
+    rs = np.random.RandomState(8)
+    gray = (np.cumsum(rs.rand(250, 192) < 0.3, axis=1) * 7 % 256)
+    planes = ((gray[None] >> np.arange(8)[:, None, None]) & 1).astype(bool)
+    bits = torch.from_numpy(planes).to(dev)
+    ctx = compress.scab_ctx_map(bits, tmpl=12, stripe_rows=64)
+    before = _cuda.launches["rans_encode"]
+    stack = ransdevice.rans_stack_encode(bits, ctx, stripe_rows=64)
+    assert _cuda.launches["rans_encode"] == before + 1
+    for i in range(8):
+        one = ransdevice.rans_page_encode(bits[i], ctx[i], stripe_rows=64)
+        for k, v in one.items():
+            assert torch.equal(stack[k][i], v), k
+
+
+@pytest.mark.parametrize("backend", ["device", "device-assembly",
+                                     "device-rans"])
+def test_pgm_on_card_matches_cpu(dev, backend):
+    rs = np.random.RandomState(9)
+    gray = (np.abs(np.cumsum(rs.randn(96, 130), axis=1)) * 9).astype(
+        np.uint32) % 256
+    p = None if backend == "device-rans" else codec.CodecParams(codec=10,
+                                                                 W=0)
+    got = codec.encode_pgm(gray, 255, p, backend=backend, device="cuda")
+    assert got == codec.encode_pgm(gray, 255, p, backend=backend,
+                                   device="cpu")
+    np.testing.assert_array_equal(codec.decode_pgm(got)[0], gray)
+
+
+def test_dense_planes_one_k8_launch(dev):
+    """A stack whose planes lie past the run-array ladder (residuals of
+    0.3 to 0.9 ones) is coded by one K8 launch, with the native coder's
+    bytes."""
+    rs = np.random.RandomState(10)
+    planes = rs.rand(3, 120, 200) < np.array([0.3, 0.5, 0.9])[:, None, None]
+    before = _cuda.launches["eg_encode"]
+    got = compress.encode_planes_device(planes, "device", device="cuda")
+    assert _cuda.launches["eg_encode"] == before + 1
+    assert got == compress.encode_planes_device(planes, "native",
+                                                device="cpu")
