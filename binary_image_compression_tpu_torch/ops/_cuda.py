@@ -130,7 +130,7 @@ def _declare(lib) -> None:
     lib.bic_rans_encode.restype = i
     lib.bic_rans_encode.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.bic_eg_encode.restype = i
-    lib.bic_eg_encode.argtypes = [p] * 11 + [i] * 7 + [p]
+    lib.bic_eg_encode.argtypes = [p] * 5 + [i] * 5 + [ctypes.c_longlong, p]
 
 
 def resolve_device(device):

@@ -10,12 +10,16 @@ composition of those maps; with the entry states known every run's code is
 independent.
 
 ``eg_encode`` is kernel K8 (``csrc/eg_encode.cu``, note at its top): it
-reads the packed residual itself, with no run array.  A warp takes a chunk
-of 64 words, lane s walking the chunk's runs from entry state s, which gives
-the chunk's 32-entry map and its code length from each state; a block
-composes its 8 chunk maps, one warp per plane composes the blocks' maps in
-order, and a thread per chunk re-walks its chunk from its true entry state
-and writes its codes.  For CPU tensors it runs the plain version: the run
+reads the packed residual itself, with no run array, in three kernels.
+Warps take chunks of ``CHUNK_WORDS`` words (64 where the stack has many
+chunks for the card's resident warps): each finds its chunk's ones and
+walks the runs between them from each of the 32 states at once (lane s
+from state s; a run step is a lookup in ``step_table`` or a closed form,
+never a loop over blocks) for the chunk's aggregate (map, code length from
+each state, first and last one); a block composes its tile of
+``CHUNKS_PER_BLOCK`` chunks.  A block per plane scans the tiles in about
+sqrt(tiles) segments.  Then each warp takes its chunk's entry state and
+bit offset, re-walks its runs and its 32 lanes write the codes.  For CPU tensors it runs the plain version: the run
 lengths by ``torch.nonzero`` (``runs_from_residual_flat``), the transition
 maps of every run from every state (``_run_transitions``), a log-step
 gather scan of their composition (``compose_scan``; torch has no
@@ -44,8 +48,10 @@ from .bitpack import U32
 from .bitstream import pack_varlen
 from .entropy import EG_BLOCKS, EGLUT
 
-CHUNK_WORDS = 64                    # K8: words of one chunk
-CHUNKS_PER_BLOCK = 8                # K8: chunks (warps) a block composes
+CHUNK_WORDS = 16                    # K8: words of a chunk (64 on big stacks)
+CHUNKS_PER_BLOCK = 8                # K8: chunks of a tile (a block's warps)
+RECORD_INTS = 42                    # K8: an aggregate's workspace record
+TAB_RUNS = 64                       # K8: run lengths its step table holds
 
 
 @lru_cache(maxsize=8)
@@ -241,14 +247,34 @@ def eg_encode(res: torch.Tensor, cols: int):
 
 
 def chunk_geometry(rows: int, nw: int) -> tuple[int, int]:
-    """(chunks, blocks) of one plane of rows x nw words in K8."""
+    """(chunks, tiles) of one plane of rows x nw words in K8 at
+    ``CHUNK_WORDS``, the most it takes."""
     n_chunks = -(-(rows * nw) // CHUNK_WORDS)
     return n_chunks, -(-n_chunks // CHUNKS_PER_BLOCK)
 
 
+def workspace_ints(P: int, rows: int, nw: int) -> int:
+    """K8's workspace for P planes, in int32, as ``csrc/eg_encode.cu`` lays
+    it out: a record and an entry (4 ints) per tile, each part rounded up
+    to 32 ints, then a record per chunk."""
+    NC, NT = chunk_geometry(rows, nw)
+    r32 = lambda v: -(-v // 32) * 32
+    return r32(P * NT * RECORD_INTS) + r32(P * NT * 4) + P * NC * RECORD_INTS
+
+
+@lru_cache(maxsize=8)
+def step_table(device: torch.device) -> torch.Tensor:
+    """K8's step table on `device`, built once per device from
+    ``_run_transitions``: int32 [TAB_RUNS * 32], entry L * 32 + s the run of
+    L zeros from state s as the kernel carries a step (4 * exit | code
+    bits << 8)."""
+    exit_s, nb, _, s_term = _run_transitions(torch.arange(TAB_RUNS), TAB_RUNS)
+    bits = nb + 1 + torch.tensor(EGLUT)[s_term]
+    return (exit_s << 2 | bits << 8).to(torch.int32).reshape(-1).to(device)
+
+
 def _launch(res: torch.Tensor, cols: int):
-    """Launch csrc/eg_encode.cu (five kernels on the current stream: chunk
-    ends, their scan, chunk maps, the blocks' scan, the codes)."""
+    """Launch csrc/eg_encode.cu's three kernels on the current stream."""
     P, rows, nw = res.shape
     dev = res.device
     if (res.dtype != torch.int32 or not res.is_contiguous()
@@ -258,21 +284,15 @@ def _launch(res: torch.Tensor, cols: int):
                          f"{tuple(res.shape)}")
     n = rows * cols
     _geometry(n)
-    NC, NB = chunk_geometry(rows, nw)
     TW = payload_words(n)
     words = torch.zeros((P, TW), dtype=torch.int32, device=dev)
     nbits = torch.empty(P, dtype=torch.int64, device=dev)
-    i32 = lambda *s: torch.empty(s, dtype=torch.int32, device=dev)
-    last, prev = i32(P, NC), i32(P, NC)
-    pmap, plen = i32(P, NC, 32), i32(P, NC, 32)
-    bmap, blen = i32(P, NB, 32), i32(P, NB, 32)
-    bent = i32(P, NB)
-    boff = torch.empty((P, NB), dtype=torch.int64, device=dev)
+    ws = torch.empty(workspace_ints(P, rows, nw), dtype=torch.int32,
+                     device=dev)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     lib = _cuda.get_lib()
     _cuda.check(lib.bic_eg_encode(
-        ptr(res), ptr(last), ptr(prev), ptr(pmap), ptr(plen), ptr(bmap),
-        ptr(blen), ptr(bent), ptr(boff), ptr(words), ptr(nbits), P, rows,
-        cols, nw, NC, NB, TW, _cuda.stream(dev)), "bic_eg_encode")
+        ptr(res), ptr(step_table(dev)), ptr(ws), ptr(words), ptr(nbits), P,
+        rows, cols, nw, TW, ws.numel(), _cuda.stream(dev)), "bic_eg_encode")
     _cuda.launches["eg_encode"] += 1
     return words, nbits

@@ -12,8 +12,11 @@ and 255 lanes, three pages in one launch, every codec-13 case of the CPU
 tests and a letter page, and on doc512 also against its stream-order
 twin, and K8, codec 10's adaptive exp-Golomb coder, on residual planes
 from empty to full, odd widths, both first-run cases, run counts at each
-rung of the capacity ladder that sizes its plain version's run array, and
-the whole stacks of the bench page, a letter page and a noisy page) against its plain PyTorch version on the card, then
+rung of the capacity ladder that sizes its plain version's run array, a
+single one at the last pixel, ones only in the first and last words,
+chunks of 512 ones, the whole stacks of the bench page, a letter page and
+a noisy page, and a color page's 24 planes) against its plain PyTorch
+version on the card, then
 drives the port's paths, each with
 the launch counts reset just before it and read just after: the causal
 encode (one 512x512 page, then a 64-page corpus through the archive
@@ -41,7 +44,7 @@ context scan, and each is round-tripped; stages and kernels are timed with CUDA
 events (K1's, K2's, K3's and K4's kernels also by torch.profiler's device
 times; the W = 16 and W = 64 encodes split into stages),
 K7 also at 1, 8 and 32 pages a launch and in clocks a step, the
-grayscale stages (MED, run counts, K8, the K7 stack, fetches) and
+grayscale stages (MED, K8 kernel by kernel, the K7 stack, fetches) and
 ``encode_pgm`` end to end per backend,
 and each kernel's time is printed beside its least time on the card
 (``utils/roofline``) and, for K1's plane, K5 and K6, the one PyTorch call
@@ -700,6 +703,26 @@ def device_times(fn, kernels, reps: int = 20):
 
 def device_ms(fn, kernel: str, reps: int = 20):
     return device_times(fn, (kernel,), reps)[0]
+
+
+def device_split(fn, matches, reps: int = 20) -> dict:
+    """Mean device ms per call of fn() in each CUDA kernel whose name holds
+    one of `matches`, by kernel name, from torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        hit = next((m for m in matches if m in e.key), None)
+        if hit and e.device_time_total:
+            name = e.key[e.key.index(hit):].split("(")[0].split("<")[0]
+            out[name] = out.get(name, 0.0) + e.device_time_total / 1e3 / reps
+    return out
 
 
 def nd(v) -> str:
@@ -1589,9 +1612,11 @@ def check_k8(eg, compress, bitplanes, pnm, dev) -> int:
     the composition scan, pack_varlen) on the same CUDA tensors, word for
     word and bit count for bit count: residual planes at densities 0 to 1,
     odd widths, a first run of 0 and of 7, run counts at each rung of
-    ``run_cap`` (and one past it), and the whole stacks of the bench page,
-    the letter page and the noisy page, whose low plane is past the ladder.
-    Returns the worst error."""
+    ``run_cap`` (and one past it), a single one at the last pixel, ones only
+    in the first and last words, chunks of 512 ones, words that are not a
+    whole number of chunks, the whole stacks of the bench page, the letter
+    page and the noisy page, whose low plane is past the ladder, and a color
+    page's 24 planes.  Returns the worst error."""
     worst = 0
 
     def one(name, res, cols):
@@ -1635,6 +1660,18 @@ def check_k8(eg, compress, bitplanes, pnm, dev) -> int:
     if list(got) != rungs:
         raise AssertionError(f"run counts {list(got)} != the rungs {rungs}")
     one(f"run counts {rungs}", res, 512)
+    last = np.zeros((2, 300, 200), bool)
+    last[:, -1, -1] = True            # one run across every chunk
+    one("a single one at the last pixel", up(last), 200)
+    ends = np.zeros((2, 100, 300), bool)
+    ends[:, 0, :32] = rs.rand(2, 32) < 0.5
+    ends[:, -1, 288:] = True
+    one("ones only in the first and last words", up(ends), 300)
+    full = rs.rand(2, 64, 512) < 0.05
+    full[:, 5:7] = True               # rows of 16 words: chunks of 512 ones
+    one("chunks of 512 ones", up(full), 512)
+    one("37 x 70: 111 words, not whole chunks",
+        up(rs.rand(3, 37, 70) < 0.3), 70)
     for name, gray in gray_cases(pnm):
         _, res = gray_residuals(compress, bitplanes, gray, dev)
         rows, cols = gray.shape
@@ -1644,6 +1681,11 @@ def check_k8(eg, compress, bitplanes, pnm, dev) -> int:
             raise AssertionError(f"{name}: the low plane's {counts[0]} runs "
                                  f"are not past the ladder")
         one(f"{name} stack (runs per plane {counts})", res, cols)
+    g = gray_cases(pnm)[0][1]
+    planes = np.concatenate([bitplanes.decompose(ch ^ (ch >> 1), 255)
+                             for ch in (g, np.roll(g, 100, axis=1), g.T)])
+    res = compress.med_planes(up(planes), 512)
+    one("a color page's 24 planes in one launch", res, 512)
     return worst
 
 
@@ -1717,8 +1759,9 @@ def gray_drives(codec, pnm, _cuda) -> dict:
 def gray_times(codec, compress, eg, rd, bitpack, bitplanes, pnm, roofline,
                dev, gpu):
     """The grayscale stages on each gray page: upload, MED, K8 (one launch
-    for the stack; CUDA events and torch.profiler), the words' fetch, the K7
-    stack's stages and its fetch, then ``encode_pgm`` end to end per backend
+    for the stack; CUDA events, and torch.profiler kernel by kernel, the
+    payload's zero fill beside them), the words' fetch, the K7 stack's
+    stages and its fetch, then ``encode_pgm`` end to end per backend
     (host clock).  K8 beside its plain version and its bound
     (``roofline.eg_work``).  Returns the bench stack's kernels-line figures
     for K8, per launch: one launch codes the 8-plane stack."""
@@ -1736,7 +1779,8 @@ def gray_times(codec, compress, eg, rd, bitpack, bitplanes, pnm, roofline,
         res = compress.med_planes(packed, cols)
         call = lambda: eg.eg_encode(res, cols)
         k8 = cuda_ms(call, reps)
-        k8d = device_ms(call, "k8_", reps)
+        parts = device_split(call, ("k8_", "fill"), reps)
+        k8d = sum(v for k, v in parts.items() if "k8_" in k) or None
         plain = cuda_ms(lambda: eg.eg_encode_plain(res, cols), 1)
         words, nbits = call()
         nw = max(1, -(-int(nbits.max()) // 32))
@@ -1748,8 +1792,9 @@ def gray_times(codec, compress, eg, rd, bitpack, bitplanes, pnm, roofline,
         if floor > bound[0]:
             bound = (floor, "operations")
         log(f"K8 {name}: {P} planes in one launch, {runs} runs, {k8:.4f} ms "
-            f"per launch (events), device {nd(k8d)} (torch.profiler, 5 "
-            f"kernels); bound {bound[0]:.6f} ms ({bound[1]}: {nbytes} B; the "
+            f"per launch (events), device {nd(k8d)} (torch.profiler: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+            + f" ms); bound {bound[0]:.6f} ms ({bound[1]}: {nbytes} B; the "
             f"scan's chain floor {floor:.6f} ms); plain {plain:.3f} ms "
             f"[{gpu}]")
         figures[name] = (k8, plain, bound, None)

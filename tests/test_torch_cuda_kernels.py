@@ -452,21 +452,48 @@ def test_codec13_on_card_matches_cpu(dev, name, T, entropy):
     np.testing.assert_array_equal(codec.decode(got), img)
 
 
-# (planes, rows, cols, density, first one): odd widths, a first run of 0
-# and of >= 1, empty and full residuals, one block and many
-K8_CASES = [(1, 64, 96, 0.02, None), (2, 33, 61, 0.5, None),
-            (3, 75, 101, 0.1, None), (1, 180, 100, 0.05, 0),
-            (1, 180, 100, 0.05, 5), (2, 300, 64, 0.0, None),
-            (1, 32, 32, 1.0, None), (4, 512, 512, 0.2, None)]
+# (planes, rows, cols, density, first one, kind): odd widths, a first run
+# of 0 and of >= 1, empty and full residuals, one tile and many; a single
+# one at the last pixel (one run across every chunk), ones only in the
+# first and last words, whole chunks of 512 ones, words that are not a
+# whole number of chunks (37 x 70: 111 words), a color page's 24 planes,
+# and a stack of 65,536 16-word chunks, which K8 takes in 64-word ones
+K8_CASES = [(1, 64, 96, 0.02, None, None), (2, 33, 61, 0.5, None, None),
+            (3, 75, 101, 0.1, None, None), (1, 180, 100, 0.05, 0, None),
+            (1, 180, 100, 0.05, 5, None), (2, 300, 64, 0.0, None, None),
+            (1, 32, 32, 1.0, None, None), (4, 512, 512, 0.2, None, None),
+            (2, 300, 200, 0, None, "last pixel"),
+            (2, 100, 300, 0, None, "first and last words"),
+            (2, 64, 512, 0, None, "512 ones"),
+            (3, 37, 70, 0.3, None, None), (24, 96, 130, -1, None, None),
+            (8, 2048, 2048, 0.1, None, None)]
 
 
-@pytest.mark.parametrize("P,rows,cols,dens,first", K8_CASES)
-def test_k8_kernel_matches_plain(dev, P, rows, cols, dens, first):
-    rs = np.random.RandomState(rows * cols + P)
+def _k8_planes(P, rows, cols, dens, first, kind, rs):
+    """Residual planes; dens -1: each plane its own density."""
+    if dens < 0:
+        return rs.rand(P, rows, cols) < rs.rand(P)[:, None, None]
     res = rs.rand(P, rows, cols) < dens
+    if kind == "last pixel":
+        res[:] = False
+        res[:, -1, -1] = True
+    elif kind == "first and last words":
+        res[:] = False
+        res[:, 0, :32] = rs.rand(P, 32) < 0.5
+        res[:, -1, (cols - 1) // 32 * 32:] = True
+    elif kind == "512 ones":
+        res = rs.rand(P, rows, cols) < 0.05
+        res[:, 5:7] = True
     if first is not None:
         res.reshape(P, -1)[:, :first + 1] = False
         res.reshape(P, -1)[:, first] = True
+    return res
+
+
+@pytest.mark.parametrize("P,rows,cols,dens,first,kind", K8_CASES)
+def test_k8_kernel_matches_plain(dev, P, rows, cols, dens, first, kind):
+    rs = np.random.RandomState(rows * cols + P)
+    res = _k8_planes(P, rows, cols, dens, first, kind, rs)
     r = torch.from_numpy(bitpack.np_pack(res).view(np.int32)).to(dev)
     before = _cuda.launches["eg_encode"]
     got = egdevice.eg_encode(r, cols)

@@ -3,9 +3,11 @@ exactly: the EG table, the MED residual and the bitplanes, the run
 extraction at its capacity boundaries, the composition scan, the plain K8
 against JAX's ``eg_encode_runs_device`` and the native coder, the run
 counts and the capacity ladder that sizes the plain K8's run array, and a
-numpy model of K8's order of work (``csrc/eg_encode.cu``: chunk ends, their scan, chunk maps walked
-from every state, the blocks' composition, one writer per chunk) against
-the plain version."""
+numpy model of K8's order of work (``csrc/eg_encode.cu``: chunk maps
+walked from every state by the closed-form run step, tiles composed, a
+segmented scan of the tiles, warps writing their chunks' codes through a
+ring of words) against the plain version, and the closed-form step against
+the coder's block loop."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -240,7 +242,8 @@ def test_dense_stack_goes_native():
 # ---------------------------------------------------------------------------
 
 def _eg_run(L, s, first):
-    """csrc eg_run: (exit, nb, g, rem) of a run of L zeros from state s."""
+    """The native coder's step: (exit, nb, g, rem) of a run of L zeros from
+    state s, a block at a time."""
     nb = 0
     if first:
         if L == 0:
@@ -255,107 +258,383 @@ def _eg_run(L, s, first):
     return max(s - 1, 0), nb, g, L
 
 
-def _chunk_ones(words, c, nw, cols):
-    for k in range(egdevice.CHUNK_WORDS):
-        gi = c * egdevice.CHUNK_WORDS + k
+# the kernel's constants: step table rows (run lengths), ring words, the
+# tile scan's segments (warps)
+TAB_RUNS, RING, SCAN_WARPS = egdevice.TAB_RUNS, 64, 32
+
+
+def _blocks_below(s):
+    """csrc blocks_below: C[s], the zeros in the blocks of states < s."""
+    if s < 16:
+        return 4 * ((1 << (s >> 2)) - 1) + ((s & 3) << (s >> 2))
+    if s < 24:
+        i = (s - 16) >> 1
+        return 60 + 32 * ((1 << i) - 1) + (((s - 16) & 1) << (4 + i))
+    return 540 + 256 * ((1 << (s - 24)) - 1)
+
+
+CS = np.array([_blocks_below(s) for s in range(32)], np.int64)
+
+
+def _eg_code(L, s):
+    """csrc eg_code, on numpy arrays: (exit, nb, g, rem) of runs of L zeros
+    from states s, in a fixed number of operations."""
+    X = np.asarray(L, np.int64) + CS[np.asarray(s)]
+    seg = (X >= 60).astype(np.int64) + (X >= 540)
+    base = np.array([0, 60, 540])[seg]
+    lu, lg, g0 = 2 + 3 * seg, 2 - seg, 4 * seg
+    s0 = np.array([0, 16, 24])[seg]
+    d = X - base
+    j = np.minimum(np.floor(np.log2((d >> lu) + 1)).astype(np.int64), 7)
+    e = d - (((1 << j) - 1) << lu)
+    b = g0 + j
+    t = s0 + (j << lg) + (e >> b)
+    return (np.maximum(np.minimum(t, 31) - 1, 0), t - np.asarray(s), b,
+            e & ((1 << b) - 1))
+
+
+def _eg_first(L):
+    if L == 0:
+        return 0, 0, 1, 0
+    ex, nb, g, rem = (int(v) for v in _eg_code(L - 1, 1))
+    return ex, nb + 1, g, rem
+
+
+def _pack(ex, nb, g):
+    """csrc pack: a step as the walks carry it, 4 * exit | bits << 8."""
+    return ex << 2 | (nb + 1 + g) << 8
+
+
+def _exit(v):
+    return (v >> 2) & 31
+
+
+TABLE = np.array([_pack(*_eg_code(L, np.arange(32))[:3])
+                  for L in range(TAB_RUNS)])
+
+
+def _run_step(s, L):
+    """csrc run_step: exit << 2 | bits << 8 of a run of L zeros from each
+    of s (the step table's entry, or the closed form)."""
+    if L < TAB_RUNS:
+        return TABLE[L][s]
+    return _pack(*_eg_code(L, s)[:3])
+
+
+def _walk(L, i0, i1, s):
+    """csrc walk over L[i0:i1) from states s (an array: the map walk; an
+    int: the writer's), a table lookup a run below TAB_RUNS, else the
+    closed form (the kernel takes four runs a test; the steps are the
+    same).  Returns (exit states, bits, [entry state of each run])."""
+    s4, states = np.asarray(s) << 2, []
+    acc = 0 * s4
+    for i in range(i0, i1):
+        states.append(s4 >> 2)
+        v = _run_step(s4 >> 2, L[i])
+        s4, acc = v & 0x7C, acc + (v >> 8)
+    return s4 >> 2, acc, states
+
+
+def _first_step(L):
+    return _pack(*_eg_first(L)[:3])
+
+
+def _apply(x, agg):
+    """csrc apply: the entry (state, last one, bit offset) x, then the
+    aggregate agg = (map, bits, f, l), None for the identity."""
+    if agg is None:
+        return x
+    m, b, f, l = agg
+    st, lp, off = x
+    v = _first_step(f) if lp < 0 else int(_run_step(st, f - lp - 1))
+    e = _exit(v)
+    return int(m[e]), l, off + (v >> 8) + int(b[e])
+
+
+def _compose(a, c):
+    """a then c (aggregates; None: the identity): the run between a's last
+    one and c's first one joins them."""
+    if a is None or c is None:
+        return c if a is None else a
+    v = _run_step(a[0], c[2] - a[3] - 1)
+    e = _exit(v)
+    return c[0][e], a[1] + (v >> 8) + c[1][e], a[2], c[3]
+
+
+def _chunk(words, c, nw, cols, cw):
+    """k8_chunk_maps for chunk c of cw words: (aggregate or None, its inner
+    run lengths, its first and last one)."""
+    ones = []
+    for k in range(cw):
+        gi = c * cw + k
         if gi >= words.size:
-            return
-        w = int(words[gi])
-        base = (gi // nw) * cols + (gi % nw) * 32
-        for bit in range(32):
-            if w >> (31 - bit) & 1:
-                yield base + bit
+            break
+        w, base = int(words[gi]), (gi // nw) * cols + (gi % nw) * 32
+        ones += [base + bit for bit in range(32) if w >> (31 - bit) & 1]
+    if not ones:
+        return None, [], -1, -1
+    inner = [q - p - 1 for p, q in zip(ones, ones[1:])]
+    s, bits, _ = _walk([0] + inner, 1, len(ones), np.arange(32))
+    return (s, bits, ones[0], ones[-1]), inner, ones[0], ones[-1]
 
 
-def _chunk_runs(words, c, nw, cols, prev, n, NC):
-    """(L, first) of the runs chunk c codes: one per set bit, from the last
-    one before it, and the trailing zero run in the last chunk."""
-    pv = prev
-    for pos in _chunk_ones(words, c, nw, cols):
-        yield pos - pv - 1, pv < 0
-        pv = pos
-    if c == NC - 1 and n - 1 - pv > 0:
-        yield n - 1 - pv, pv < 0
+def _tile_scan(aggs):
+    """k8_tile_scan on one plane's tile aggregates: ~sqrt(NT) segments (at
+    most SCAN_WARPS) of ceil(NT / segments) tiles each composed, the
+    segments run from the plane's start, each segment run again from its
+    entry: each tile's entry (state, last one before it, bit offset)."""
+    NT = len(aggs)
+    nseg = min(SCAN_WARPS, max(1, int(np.ceil(np.sqrt(NT)))))
+    seg = -(-NT // nseg)
+    spans = [range(min(NT, w * seg), min(NT, w * seg + seg))
+             for w in range(nseg)]
+    x, starts = (0, -1, 0), []
+    for span in spans:
+        a = None
+        for k in span:
+            a = _compose(a, aggs[k])
+        starts.append(x)
+        x = _apply(x, a)
+    entries = []
+    for span, x in zip(spans, starts):
+        for k in span:
+            entries.append(x)
+            x = _apply(x, aggs[k])
+    return entries
 
 
-def k8_model(res_plane, rows, cols):
-    """K8's phases on one plane of packed words uint32 [rows, nw]:
-    (uint32 words [payload_words], total bits)."""
+def _word_bits(k, q, nb, g, rem):
+    """csrc WarpWriter: the bits of a code at relative bit q (nb ones, '0',
+    g-bit rem) that fall in relative word k, MSB-first."""
+    kb, last = k << 5, q + nb + g
+    a, e = max(q, kb) - kb, min(q + nb, kb + 32) - kb
+    v = ((0xFFFFFFFF >> a) & ~(0 if e >= 32 else 0xFFFFFFFF >> e)) \
+        if a < e else 0
+    d = kb + 31 - last
+    if g and -32 < d < 32:
+        v |= (rem << d if d >= 0 else rem >> -d) & 0xFFFFFFFF
+    return v
+
+
+def _emit(out, owners, c, cr, s, a0, TW):
+    """k8_emit for chunk c: its runs cr = (L, cnt, R, L0, Lt, first0) (run
+    0 ends at its first one, or is the trailing run of an empty last chunk;
+    runs 1 .. cnt-1 are L[i]; run cnt the trailing run), from state s at bit
+    a0, 32 at a time: the walk leaves each run's entry state with its lane
+    (run 0 and the trailing run stepped apart), each lane codes its run and
+    takes its offset from a scan of the code lengths, ORs its code into a
+    ring of RING words; complete words are stored (the chunk's first and
+    last words OR-ed).  owners records who stored or OR-ed each word.
+    Returns the end bit."""
+    L, cnt, R, L0, Lt, first0 = cr
+    length = lambda i: L0 if i == 0 else (L[i] if i < cnt else Lt)
+    w0, o, rb = a0 >> 5, a0 & 31, 0
+    ring = [0] * RING
+
+    def put(k, shared):
+        v, ring[k % RING] = ring[k % RING], 0
+        if w0 + k < TW:
+            owners.setdefault(w0 + k, []).append((c, shared))
+            out[w0 + k] = (out[w0 + k] | v) if shared else v
+
+    for i0 in range(0, R, 32):
+        i1, states, j = min(R, i0 + 32), [], i0
+        if i0 == 0:                      # run 0, stepped apart
+            states.append(s)
+            s = _exit(_first_step(L0) if first0 else int(_run_step(s, L0)))
+            j = 1
+        inner = min(i1, cnt)
+        if j < inner:
+            s, _, st = _walk(L, j, inner, s)
+            states += [int(x) for x in st]
+        if cnt and inner < i1:           # the trailing run
+            states.append(s)
+            s = _exit(int(_run_step(s, Lt)))
+        assert len(states) == i1 - i0
+        codes = [_eg_first(length(i)) if i == 0 and first0 else
+                 tuple(int(x) for x in _eg_code(length(i), st))
+                 for i, st in zip(range(i0, i1), states)]
+        lens = [nb + 1 + g for _, nb, g, _ in codes]
+        starts = o + np.concatenate([[0], np.cumsum(lens)[:-1]])
+        o += sum(lens)
+        codes = list(zip(codes, (int(q) for q in starts)))
+        while True:
+            top = rb + RING
+            for (_, nb, g, rem), q in codes:     # lane i: run i0 + i
+                for k in range(max(q >> 5, rb),
+                               min((q + nb + g) >> 5, top - 1) + 1):
+                    ring[k % RING] |= _word_bits(k, q, nb, g, rem)
+            end = min(top, o >> 5)
+            for k in range(rb, end):
+                put(k, k == 0)
+            rb = end
+            if end < top:
+                break
+    if o & 31:
+        put(o >> 5, True)
+    assert not any(ring)
+    return (w0 << 5) + o
+
+
+def k8_model(res_plane, rows, cols, cw=egdevice.CHUNK_WORDS):
+    """K8's kernels on one plane of packed words uint32 [rows, nw] in
+    chunks of cw words: (uint32 words [payload_words], total bits)."""
     nw = res_plane.shape[1]
     words = res_plane.reshape(-1)
     n = rows * cols
-    NC, NB = egdevice.chunk_geometry(rows, nw)
     CPB = egdevice.CHUNKS_PER_BLOCK
-    # 1-2: each chunk's last one, and the exclusive max-scan of those
-    last = [max(_chunk_ones(words, c, nw, cols), default=-1)
-            for c in range(NC)]
-    prev = np.maximum.accumulate([-1] + last)[:-1]
-    # 3: each chunk walked from every state; prefixes within each block
-    cm, cl = np.zeros((NC, 32), int), np.zeros((NC, 32), int)
-    for c in range(NC):
-        runs = list(_chunk_runs(words, c, nw, cols, prev[c], n, NC))
-        for s0 in range(32):
-            s, bits = s0, 0
-            for L, first in runs:
-                s, nb, g, _ = _eg_run(L, s, first)
-                bits += nb + 1 + g
-            cm[c, s0], cl[c, s0] = s, bits
-    pm, pl = np.zeros((NC, 32), int), np.zeros((NC, 32), int)
-    bm, bl = np.zeros((NB, 32), int), np.zeros((NB, 32), int)
-    for b in range(NB):
-        st, ln = np.arange(32), np.zeros(32, int)
-        for c in range(b * CPB, min(NC, (b + 1) * CPB)):
-            pm[c], pl[c] = st, ln
-            ln = ln + cl[c][st]
-            st = cm[c][st]
-        bm[b], bl[b] = st, ln
-    # 4: the blocks in order from state 0
-    bent, boff = np.zeros(NB, int), np.zeros(NB, int)
-    st, off = 0, 0
-    for b in range(NB):
-        bent[b], boff[b] = st, off
-        off += bl[b][st]
-        st = bm[b][st]
-    # 5: each chunk from its true entry state, OR-ed into the payload
+    NC = -(-(rows * nw) // cw)
+    NT = -(-NC // CPB)
+    # 1. each chunk's aggregate; each tile's composer: the chunks' prefixes
+    # within the tile and the tile's aggregate
+    chunks = [_chunk(words, c, nw, cols, cw) for c in range(NC)]
+    prefix, aggs = [], []
+    for b in range(NT):
+        pre = None
+        for ch in chunks[b * CPB:(b + 1) * CPB]:
+            prefix.append(pre)
+            pre = _compose(pre, ch[0])
+        aggs.append(pre)
+    # 2. each tile's entry; the same as one scan in order
+    entries = _tile_scan(aggs)
+    x = (0, -1, 0)
+    for b in range(NT):
+        assert entries[b] == x
+        x = _apply(x, aggs[b])
+    # 3. each chunk from its entry
     TW = egdevice.payload_words(n)
-    out = np.zeros(TW, np.uint64)
+    out, owners, total = np.zeros(TW, np.int64), {}, None
     for c in range(NC):
-        b = c // CPB
-        s, pos = pm[c][bent[b]], boff[b] + pl[c][bent[b]]
-        for L, first in _chunk_runs(words, c, nw, cols, prev[c], n, NC):
-            s_next, nb, g, rem = _eg_run(L, s, first)
-            bits = "1" * nb + "0" + (format(rem, f"0{g}b") if g else "")
-            for i, ch in enumerate(bits):
-                if ch == "1" and (pos + i) // 32 < TW:
-                    out[(pos + i) // 32] |= np.uint64(1 << (31 - (pos + i)
-                                                             % 32))
-            pos += len(bits)
-            s = s_next
-        if c + 1 < NC:      # where the next chunk's writer starts
-            b1 = (c + 1) // CPB
-            assert pos == boff[b1] + pl[c + 1][bent[b1]]
-    assert pos == off
-    return out.astype(np.uint32), off
+        agg, inner, f, l = chunks[c]
+        x = _apply(entries[c // CPB], prefix[c])
+        st, lp, off = x
+        cnt = len(inner) + 1 if agg else 0
+        Lt = n - 1 - (l if agg else lp)
+        R = cnt + (c == NC - 1 and Lt > 0)
+        cr = ([0] + inner, cnt, R, f - lp - 1 if agg else Lt, Lt, lp < 0)
+        end = _emit(out, owners, c, cr, st, off, TW) if R else off
+        if c < NC - 1:
+            assert _apply(x, agg)[2] == end
+        else:
+            total = end
+    for wi, who in owners.items():   # a stored word is its chunk's alone
+        if any(not shared for _, shared in who):
+            assert len({c for c, _ in who}) == 1, (wi, who)
+    return out.astype(np.uint32), total
 
 
-@pytest.mark.parametrize("rows,cols,dens,first_one", [
-    (64, 96, 0.02, None), (33, 61, 0.5, None), (75, 101, 0.1, None),
-    (180, 100, 0.05, 0), (180, 100, 0.05, 5), (300, 64, 0.0, None),
-    (40, 200, 0.25, None), (1, 33, 1.0, None)])
-def test_k8_model_equals_plain(rows, cols, dens, first_one):
-    """The kernel's order of work, in numpy, == the plain K8, over one and
-    several blocks of 8 chunks, ragged rows, a plane whose first run is 0 or
-    5, an empty plane and a full one."""
+def _closed_form_ref(L, s):
+    """_eg_run's block loop on numpy arrays (for every L and s at once)."""
+    lut = np.asarray(entropy.EGLUT, np.int32)
+    L, s = L.astype(np.int32), s.astype(np.int32)
+    nb = np.zeros_like(L)
+    g = lut[s]
+    take = L >= 1 << g
+    while take.any():
+        L -= take << g
+        nb += take
+        s = np.minimum(s + take, 31)
+        g = lut[s]
+        take = L >= 1 << g
+    return np.maximum(s - 1, 0), nb, g, L
+
+
+def test_closed_form_run_step_equals_eg_run():
+    """The kernel's run step (csrc eg_code: a segment of the LUT's block
+    prefix, a shift past state 31, no loop) == _eg_run's block loop for
+    every state and every L up to 2^17, and == _eg_run itself on a sample
+    and near 2^30; C[s] == the prefix sum of EG_BLOCKS."""
+    np.testing.assert_array_equal(
+        CS, np.concatenate([[0], np.cumsum(entropy.EG_BLOCKS)[:-1]]))
+    L = np.repeat(np.arange(2 ** 17 + 1, dtype=np.int64), 32)
+    s = np.tile(np.arange(32, dtype=np.int64), 2 ** 17 + 1)
+    for got, want in zip(_eg_code(L, s), _closed_form_ref(L, s)):
+        np.testing.assert_array_equal(got, want)
+    rs = np.random.RandomState(17)
+    for Lv in rs.randint(0, 2 ** 17, 20):
+        for sv in range(32):
+            assert tuple(int(v) for v in _eg_code(Lv, sv)) == \
+                _eg_run(int(Lv), sv, False), (Lv, sv)
+    # near 2^30 a run takes ~2^15 blocks: a few states, one at a time
+    for Lv in [2 ** 30 - 1 - k for k in (0, 1, 32767, 32768)] + \
+            list(rs.randint(2 ** 17, 2 ** 30, 2)):
+        for sv in (0, 1, 16, 30, 31):
+            assert tuple(int(v) for v in _eg_code(Lv, sv)) == \
+                _eg_run(int(Lv), sv, False), (Lv, sv)
+    for Lv in [0, 1, 2, 5, 1000, 2 ** 30 - 1]:
+        assert _eg_first(Lv) == _eg_run(Lv, 0, True)
+
+
+def test_step_table_equals_eg_run():
+    """K8's step table (``egdevice.step_table``, from the plain version's
+    transitions) == the coder's step and the kernel's closed form, for
+    every state and run below TAB_RUNS."""
+    tab = egdevice.step_table(torch.device("cpu")).numpy().reshape(
+        TAB_RUNS, 32)
+    np.testing.assert_array_equal(tab, TABLE)
+    for s in range(32):
+        for L in range(TAB_RUNS):
+            ex, nb, g, _ = _eg_run(L, s, False)
+            assert (tab[L, s] >> 2 & 31, tab[L, s] >> 8) == (ex, nb + 1 + g)
+
+
+def _stress(kind, rows, cols, rs):
+    """Residual planes that stress K8's geometry."""
+    res = np.zeros((rows, cols), bool)
+    if kind == "last pixel":            # one run across every chunk
+        res[-1, -1] = True
+    elif kind == "first and last words":
+        res[0, :32] = rs.rand(32) < 0.5
+        res[-1, (cols - 1) // 32 * 32:] = True
+    elif kind == "512 ones":            # whole chunks of ones, in a mix
+        res = rs.rand(rows, cols) < 0.05
+        res[5:7] = True
+    return res
+
+
+@pytest.mark.parametrize("rows,cols,dens,first_one,kind", [
+    (64, 96, 0.02, None, None), (33, 61, 0.5, None, None),
+    (75, 101, 0.1, None, None), (180, 100, 0.05, 0, None),
+    (180, 100, 0.05, 5, None), (300, 64, 0.0, None, None),
+    (40, 200, 0.25, None, None), (1, 33, 1.0, None, None),
+    (300, 200, 0, None, "last pixel"),
+    (100, 300, 0, None, "first and last words"),
+    (64, 512, 0, None, "512 ones"), (37, 70, 0.3, None, None),
+    (384, 512, 0.02, None, None), (1400, 96, 0.01, None, None),
+    (384, 512, 0.02, None, 64), (37, 70, 0.3, None, 64)])
+def test_k8_model_equals_plain(rows, cols, dens, first_one, kind):
+    """The kernels' order of work, in numpy, == the plain K8: one tile and
+    many, ragged rows and a plane whose words are not a whole number of
+    chunks (37 x 70), a first run of 0 or 5, an empty plane and a full one,
+    a single one at the last pixel, ones only in the first and last words,
+    whole chunks of 512 ones, and tile scans of 48 tiles (7 segments of 7,
+    the last of 6) and of 33 (6 of 6, the last of 3); and chunks of 64
+    words, as K8 takes on stacks of many chunks."""
     rs = np.random.RandomState(rows * cols)
-    res = rs.rand(rows, cols) < dens
+    cw = kind if isinstance(kind, int) else egdevice.CHUNK_WORDS
+    res = _stress(kind, rows, cols, rs) if isinstance(kind, str) \
+        else rs.rand(rows, cols) < dens
     if first_one is not None:
         res.reshape(-1)[:first_one + 1] = False
         res.reshape(-1)[first_one] = True
     r = torch.from_numpy(bitpack.np_pack(res).view(np.int32))[None]
     words, bits = egdevice.eg_encode(r, cols)
-    got, gbits = k8_model(r[0].numpy().view(np.uint32), rows, cols)
+    got, gbits = k8_model(r[0].numpy().view(np.uint32), rows, cols, cw)
     assert gbits == int(bits[0])
     np.testing.assert_array_equal(got, words[0].numpy().view(np.uint32))
+
+
+def test_k8_model_stack_of_24():
+    """24 planes (a color page's three 8-plane stacks) of mixed densities:
+    each plane's model == the plain K8 of the stack."""
+    rs = np.random.RandomState(24)
+    res = rs.rand(24, 24, 40) < rs.rand(24)[:, None, None]
+    r = torch.from_numpy(bitpack.np_pack(res).view(np.int32))
+    words, bits = egdevice.eg_encode(r, 40)
+    for i in range(24):
+        got, gbits = k8_model(r[i].numpy().view(np.uint32), 24, 40)
+        assert gbits == int(bits[i])
+        np.testing.assert_array_equal(got, words[i].numpy().view(np.uint32))
 
 
 def test_eg_work_counts():
