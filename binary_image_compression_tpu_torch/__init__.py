@@ -1,17 +1,32 @@
-"""PyTorch + CUDA port of binary_image_compression_tpu (codec-8 causal encode).
+"""PyTorch + CUDA port of binary_image_compression_tpu.
 
 The JAX package ``binary_image_compression_tpu`` is the reference; this
 package imports torch, numpy and the standard library only, never JAX or the
 JAX package.  Layout mirrors the reference (``ops/ models/ utils/``):
 
-* ``native``             ctypes bridge to ``native/bic_native.cpp`` (host
-                         record packer, decoder and host encoder)
-* ``ops/fused_search``   kernel K1: windowed search + serial-scan selection
-* ``ops/decide``         kernel K2: two-context adaptive Golomb mode decision
-* ``ops/_cuda``          builds ``csrc/*.cu`` with nvcc and loads them
-* ``models/compress``    ``encode`` / ``encode_batch`` (codec 8, causal)
-* ``models/archive``     BICA corpus writer with the checkpoint journal
-* ``cli``                ``python -m binary_image_compression_tpu_torch``
+* ``native``              ctypes bridge to ``native/bic_native.cpp`` (record
+                          packers, decide-and-pack, decoders, host encoders,
+                          range and exp-Golomb coders)
+* ``ops/fused_search``    kernel K1: windowed search + serial-scan selection
+* ``ops/select_windows``  kernel K4: the banded search for W > 32
+* ``ops/decide``          kernel K2: two-context adaptive Golomb mode decision
+* ``ops/strict``          kernel K3: the strict residual-substitution chain
+* ``ops/packed_dist``     K5, K6 and the BSVD pursuit kernel
+* ``ops/ransdevice``      kernel K7: codec 13's interleaved-rANS encode
+* ``ops/egdevice``        kernel K8: codec 10's adaptive exp-Golomb coder
+* ``ops/_cuda``           builds ``csrc/*.cu`` with nvcc and loads them
+* ``models/codec``        BIC1/BICG/BICC containers, every codec on the host
+* ``models/compress``     the device encoders: codecs 4/7/8 causal
+                          (``encode``, ``encode_batch``), codec 8 strict,
+                          codec 13, bitplane stacks
+* ``models/archive``      BICA corpus writer with the checkpoint journal
+* ``models/bsvd``         binary dictionary learning on the device
+* ``models/bsvd_ref``     the reference's rand48 replay of bsvd.cpp
+* ``models/ref_parity``   the reference drivers' codelength estimates
+* ``utils``               PNM IO, bitplanes, mosaics, rand48, GF(2^m),
+                          checkpoints, stage profiles and device traces,
+                          roofline bounds
+* ``cli``                 ``python -m binary_image_compression_tpu_torch``
 
 Submodules are imported on demand, so importing the package is cheap.
 """

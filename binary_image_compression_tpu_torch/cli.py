@@ -1,11 +1,13 @@
-"""Command line of the PyTorch/CUDA port (codecs 8, 10, 11 and 13,
-grayscale and color, BSVD learning).
+"""Command line of the PyTorch/CUDA port: every codec of the JAX package,
+grayscale and color, BSVD learning, the reference's estimates.
 
-Counterpart of ``binary_image_compression_tpu/cli.py`` for the commands the
-port covers:
+Counterpart of ``binary_image_compression_tpu/cli.py``:
 
     python -m binary_image_compression_tpu_torch compress   in.pbm out.bic
     python -m binary_image_compression_tpu_torch decompress in.bic out.pbm
+    python -m binary_image_compression_tpu_torch estimate   in.pbm --driver 8
+    python -m binary_image_compression_tpu_torch compare    in.pbm
+    python -m binary_image_compression_tpu_torch info       in.bic
     python -m binary_image_compression_tpu_torch archive    a.pbm b.pbm out.bica
     python -m binary_image_compression_tpu_torch extract    in.bica out.pbm --page 0
     python -m binary_image_compression_tpu_torch bsvd       in.pbm [bsvd_test flags]
@@ -13,30 +15,40 @@ port covers:
     python -m binary_image_compression_tpu_torch planes2pgm plane_ out.pgm
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain PyTorch
-versions of the kernels.  ``compress --codec 10`` is full-image MED with
-adaptive exp-Golomb runs; ``--codec 11`` the learned-dictionary
-patch codec; ``--codec 13`` the striped context-adaptive coder, its context
-map on the device and its entropy coder on the host (``--entropy host``,
-the default) or on the device (``--entropy device``: static table and
-interleaved rANS, kernel K7); ``--codec auto`` keeps the smaller of codec
-13 (host entropy) and codec 8.  ``--mode strict`` encodes codec 8 with the
-residual-substitution kernel K3 (archives: the native host encoder per
-page).  ``compress`` also takes .pgm/.pnm input, coded plane by plane
+versions of the kernels.  ``compress`` routes as JAX's CLI does: codec 8
+in causal mode goes to the device encoder (``--profile`` prints its
+stages), ``--mode strict`` to the residual-substitution kernel K3, codec
+13 to its device context map with the entropy coder on the host
+(``--entropy host``, the default) or on the device (``--entropy device``:
+static table and interleaved rANS, kernel K7), and every other codec (1,
+2, 3, 4, 6, 7, 10, 11, 12) to ``codec.encode`` on the host (codec 11
+learns on ``--device``; codecs 4 and 7 reach the device encoder through
+the API, ``compress.encode``).  ``--codec auto`` keeps the smaller of codec
+13 (host entropy) and codec 8.  Archives take every codec but 10, 11 and
+13 (causal codec 8 batched on the device, the rest page by page on the
+host).  ``compress`` also takes .pgm/.pnm input, coded plane by plane
 into a BICG stream, and .ppm, into a BICC stream (``decompress`` writes
 them back): with no codec flag, each plane takes the smaller
 of codec 13 and codec 10 on the host; explicit flags (JAX's rule: any of
 --codec, -W, -T, -R, --mode off its default) code every plane with them,
 ``--codec 10`` with the MED on the device and the native EG runs; and
 ``--entropy device`` codes the whole stack with codec 13 mode 2 on the
-device.  ``bsvd`` is the JAX CLI's device backend (``--backend tpu``) of
-bsvd_test; the rand48 reference replay (``--backend ref``) is not ported.
-Other codecs exit with the ROADMAP item that will port them.
+device.  ``estimate`` prints the reference drivers' codelength reports
+(``models/ref_parity``), ``compare`` every codec's size and round trip,
+``info`` a container's header.  ``bsvd`` runs bsvd_test on the device
+(``--backend device``, the default; JAX's ``--backend tpu``) or as the
+rand48 reference replay (``--backend ref``, ``models/bsvd_ref``, JAX's
+default).  Codec-10, -11 and -13 archives exit with the ROADMAP item that
+will port them.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import math
 import os
+import struct
 import sys
 
 import numpy as np
@@ -47,14 +59,20 @@ BSVD_INITS = {0: "neighbor", 1: "partition", 2: "random_centroids",
               3: "random_centroids", 4: "graph_grow"}
 
 
-def _params(args, codecs=(8, 10, 11, 13)):
+# archives of these codecs are ROADMAP.md Queue 1 item 7
+UNPORTED_ARCHIVE_CODECS = (10, 11, 13)
+
+
+def _params(args):
     from .models import codec
     cid = int(args.codec) if args.codec.isdigit() else None
-    if cid not in codecs:
-        sys.exit(f"{args.cmd} --codec {args.codec} is not ported yet: "
-                 "codecs 4/7 are ROADMAP.md Queue 1 item 4, "
-                 "codecs 1/2/3/6/12 item 5, codec-10, codec-11 and codec-13 "
-                 "archives item 7; use the JAX package "
+    if cid not in codec.VALID_CODECS:
+        sys.exit(f"{args.cmd} --codec {args.codec}: unknown codec; valid: "
+                 f"{codec.VALID_CODECS}, or auto (compress)")
+    if args.cmd == "archive" and cid in UNPORTED_ARCHIVE_CODECS:
+        sys.exit(f"archive --codec {cid} is not ported yet: codec-10, "
+                 "codec-11 and codec-13 archives are ROADMAP.md Queue 1 "
+                 "item 7; use the JAX package "
                  "(python -m binary_image_compression_tpu)")
     return codec.CodecParams(codec=cid, W=args.W, T=args.T, R=args.R,
                              strict=args.mode == "strict")
@@ -62,8 +80,10 @@ def _params(args, codecs=(8, 10, 11, 13)):
 
 def _add_codec_opts(p):
     p.add_argument("--codec", default="8",
-                   help="codec id (8, 10, 11, 13) or auto: the smaller of "
-                        "codec 13 and codec 8")
+                   help="1 full-prior-area, 2/3 dict, 4/6/7/8 windowed, "
+                        "10 med+rle, 11 bsvd, 12 cabic/arithmetic, 13 "
+                        "scab striped-arithmetic, or auto: the smaller of "
+                        "codec 13 and codec 8 (default 8)")
     p.add_argument("-W", type=int, default=16, help="tile width")
     p.add_argument("-T", type=int, default=None, help="early-exit threshold")
     p.add_argument("-R", type=int, default=128, help="search radius")
@@ -75,13 +95,16 @@ def _add_codec_opts(p):
                         "(payload mode 1), device = static table and "
                         "interleaved rANS built on the device (mode 2; for "
                         "PGM/PPM input every plane, whatever the codec)")
+    p.add_argument("--profile", action="store_true",
+                   help="codec 8, causal: print the encoder's stages (wall "
+                        "clock and MB/s)")
 
 
-def _encode8(img, params, device):
+def _encode8(img, params, device, profile=None):
     from .models import compress
     if params.strict:
         return compress.encode_strict(img, params, device=device)
-    return compress.encode(img, params, device=device)
+    return compress.encode(img, params, device=device, profile=profile)
 
 
 def cmd_compress(args):
@@ -105,10 +128,16 @@ def cmd_compress(args):
         if params.codec == 13:
             blob = compress.encode_scab(img, params, entropy=args.entropy,
                                         device=args.device)
-        elif params.codec in (10, 11):
-            blob = codec.encode(img, params, device=args.device)
+        elif params.codec == 8:
+            prof = None
+            if args.profile and not params.strict:
+                from .utils.profiling import PipelineProfile
+                prof = PipelineProfile()
+            blob = _encode8(img, params, args.device, prof)
+            if prof is not None:
+                print(prof.report())
         else:
-            blob = _encode8(img, params, args.device)
+            blob = codec.encode(img, params, device=args.device)
     _write(args, blob, img.size // 8, f", codec {blob[8]}")
 
 
@@ -165,10 +194,105 @@ def cmd_decompress(args):
     print(f"wrote {args.output}")
 
 
+def cmd_estimate(args):
+    """The reference drivers' codelength reports (compress_test ..
+    compress8_test), from ``models/ref_parity``, printed as JAX's CLI
+    prints them."""
+    from .models import ref_parity as rp
+    from .utils import pnm
+    img = pnm.read_pbm(args.input)
+    fns = {1: rp.compress1, 2: rp.compress2, 3: rp.compress3,
+           4: rp.compress4, 5: rp.compress5, 6: rp.compress6,
+           7: rp.compress7, 8: rp.compress8}
+    kw = {}
+    if args.driver >= 3 and args.T is not None:
+        kw["T"] = args.T
+    if args.driver >= 4:
+        kw["R"] = args.R
+    out = fns[args.driver](img, W=args.W, **kw)
+    f = out["final"]
+    skip = ("map", "hist_weight", "hist_besti", "hist_bestj", "hist_radius")
+    print(json.dumps({k: v for k, v in f.items() if k not in skip},
+                     indent=1, default=str))
+    if "map" in f:
+        print("MAP:")
+        for line in f["map"]:
+            print(line)
+    if "hist_weight" in f:
+        # the reference's ASCII histograms (compress4_test.cpp:41-50)
+        for name, log in (("hist_weight", True), ("hist_besti", False),
+                          ("hist_bestj", False), ("hist_radius", False)):
+            print(f"{name.upper()}:")
+            for i, h in enumerate(f[name]):
+                top = int(math.ceil(math.log2(h + 1.0))) if log else h
+                print(f"{i}:" + "#" * top)
+
+
+# (codec, label) of the compare table (JAX cli.py:282-305)
+COMPARE_CODECS = ((2, "dict"), (3, "dict+T"), (4, "window"),
+                  (7, "window+pred"), (8, "window+pred+inv"),
+                  (10, "med+rle"), (12, "cabic/arithmetic"),
+                  (13, "scab/striped-arith"))
+
+
+def cmd_compare(args):
+    """Each codec's size on one page, causal mode, and whether its stream
+    decodes to the page; a codec that raises shows its error in the last
+    column, as in JAX's CLI."""
+    from .models import codec
+    from .utils import pnm
+    img = pnm.read_pbm(args.input)
+    raw = img.size // 8
+    rows = [("raw", raw, None)]
+    for cid, label in COMPARE_CODECS:
+        p = codec.CodecParams(codec=cid, W=args.W if cid < 10 else 0,
+                              R=args.R, T=0 if cid >= 12 else None,
+                              strict=False)
+        try:
+            blob = codec.encode(img, p)
+            ok = bool((codec.decode(blob) == img).all())
+            rows.append((f"codec {cid} ({label})", len(blob), ok))
+        except Exception as e:
+            rows.append((f"codec {cid} ({label})", None, str(e)[:40]))
+    w = max(len(r[0]) for r in rows)
+    for name, size, ok in rows:
+        pct = f"{100.0 * size / raw:6.1f}%" if size else "   n/a"
+        tail = "" if ok in (None, True) else f"  [{ok}]"
+        print(f"{name:<{w}}  {size or 0:>8}B  {pct}{tail}")
+
+
+def cmd_info(args):
+    """The header of a BIC1 stream, a BICG container or a BICA archive as
+    one JSON line (JAX cli.py:336-358)."""
+    from .models import archive, codec
+    with open(args.input, "rb") as f:
+        blob = f.read()
+    if blob[:4] == archive.MAGIC:
+        print(json.dumps({"container": "BICA",
+                          "pages": archive.page_count(blob),
+                          "bytes": len(blob)}))
+        return
+    if blob[:4] == codec.PGM_MAGIC:
+        nplanes, gflag, maxval = struct.unpack("<BBH", blob[4:8])
+        print(json.dumps({"container": "BICG", "planes": nplanes,
+                          "gray_code": bool(gflag), "maxval": maxval,
+                          "bytes": len(blob)}))
+        return
+    if blob[:4] != codec.MAGIC:
+        sys.exit("not a BIC stream")
+    crc, cid, flags, W, rows, cols, T, R = struct.unpack(
+        "<IBBHIIII", blob[4:codec.HEADER_LEN])
+    print(json.dumps({"container": "BIC1", "codec": cid,
+                      "mode": "strict" if flags & 1 else "causal",
+                      "W": W, "rows": rows, "cols": cols, "T": T, "R": R,
+                      "bytes": len(blob),
+                      "raw_bytes": rows * cols // 8}))
+
+
 def cmd_archive(args):
     from .models import archive
     from .utils import pnm
-    params = _params(args, codecs=(8,))
+    params = _params(args)
     pages = [pnm.read_pbm(f) for f in args.inputs]
     blob = archive.encode_archive(pages, params, batch_size=args.batch_size,
                                   device=args.device,
@@ -195,16 +319,42 @@ def cmd_extract(args):
 
 
 def cmd_bsvd(args):
-    """bsvd_test on the device: learn (D, A) for X, write the three PBMs
+    """bsvd_test: learn (D, A) for X on the device (``--backend device``)
+    or by the reference replay (``--backend ref``), write the three PBMs
     (and the mosaics) to --out-dir."""
+    from .utils import pnm
+    img = pnm.read_pbm(args.input)
+    if args.backend == "ref":
+        D, A, E, wE = _bsvd_ref(args, img)
+    else:
+        D, A, E = _bsvd_device(args, img)
+        wE = int(E.sum())
+    _write_bsvd_outputs(args, D, A, E, wE)
+
+
+def _bsvd_ref(args, img):
+    """The rand48 replay of bsvd.cpp (JAX cli.py:234-246): the MDL
+    selection loops for -l 4 (forward) and -l >= 5 (backward), else
+    bsvd_test's loops."""
+    from .models import bsvd_ref
+    if args.l >= 4:
+        out = bsvd_ref.run_mdl(
+            img, W=args.w, K0=max(1, args.k // 8), image_mode=bool(args.I),
+            mi=args.i, cu=args.c, du=args.d, lmi=args.L,
+            direction="forward" if args.l == 4 else "backward", seed=args.r)
+        return out["D"], out["A"], out["E"], int(out["E"].sum())
+    D, A, E, wE, _ = bsvd_ref.run_bsvd_test(
+        img, W=args.w, K=args.k, image_mode=bool(args.I), mi=args.i,
+        cu=args.c, du=args.d, lm=args.l, seed=args.r)
+    return D, A, E, wE
+
+
+def _bsvd_device(args, img):
     import torch
 
     from .models import bsvd
-    from .ops import bitpack
     from .ops._cuda import resolve_device
-    from .utils import mosaic, pnm
     dev = resolve_device(args.device)
-    img = pnm.read_pbm(args.input)
     X = (bsvd.patchify_to_rows(torch.from_numpy(img), args.w) if args.I
          else torch.from_numpy(img.astype(np.int8))).to(dev)
     init = BSVD_INITS.get(args.i, "neighbor")
@@ -227,6 +377,12 @@ def cmd_bsvd(args):
         E, D, A, _ = bsvd.learn(X, K=args.k, init=init, dict_update=du,
                                 seed=args.r)
     E, D, A = (x.astype(bool) for x in bsvd.state_to_numpy(E, D, A))
+    return D, A, E
+
+
+def _write_bsvd_outputs(args, D, A, E, wE: int) -> None:
+    from .ops import bitpack
+    from .utils import mosaic, pnm
     out = args.out_dir
     pnm.write_pbm(D, os.path.join(out, "dictionary.pbm"))
     pnm.write_pbm(A, os.path.join(out, "coefficients.pbm"))
@@ -237,8 +393,7 @@ def cmd_bsvd(args):
     if args.M:
         mos = mosaic.render_mosaic(bitpack.np_pack(E), E.shape[1])
         pnm.write_pbm(mos, os.path.join(out, "residual_mosaic.pbm"))
-    print(f"|E| = {int(E.sum())}  (K={D.shape[0]}, M={D.shape[1]}, "
-          f"N={A.shape[0]})")
+    print(f"|E| = {wE}  (K={D.shape[0]}, M={D.shape[1]}, N={A.shape[0]})")
 
 
 def cmd_bitplanes(args):
@@ -272,18 +427,35 @@ def main(argv=None):
         formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("compress", help="PBM/PGM/PPM -> .bic (codecs 8, 10, "
-                                        "11, 13)")
+    p = sub.add_parser("compress", help="PBM/PGM/PPM -> .bic")
     p.add_argument("input")
     p.add_argument("output")
     _add_codec_opts(p)
     p.set_defaults(fn=cmd_compress)
 
-    p = sub.add_parser("decompress", help=".bic -> PBM/PGM/PPM (codecs "
-                                          "4/6/7/8, 10, 11, 13)")
+    p = sub.add_parser("decompress", help=".bic -> PBM/PGM/PPM")
     p.add_argument("input")
     p.add_argument("output")
     p.set_defaults(fn=cmd_decompress)
+
+    p = sub.add_parser("estimate",
+                       help="reference-parity codelength report")
+    p.add_argument("input")
+    p.add_argument("--driver", type=int, default=8, choices=range(1, 9))
+    p.add_argument("-W", type=int, default=16)
+    p.add_argument("-T", type=int, default=None)
+    p.add_argument("-R", type=int, default=128)
+    p.set_defaults(fn=cmd_estimate)
+
+    p = sub.add_parser("compare", help="size comparison across codecs")
+    p.add_argument("input")
+    p.add_argument("-W", type=int, default=16)
+    p.add_argument("-R", type=int, default=128)
+    p.set_defaults(fn=cmd_compare)
+
+    p = sub.add_parser("info", help="inspect a .bic container")
+    p.add_argument("input")
+    p.set_defaults(fn=cmd_info)
 
     p = sub.add_parser("archive", help="many PBMs -> one .bica corpus")
     p.add_argument("inputs", nargs="+")
@@ -305,11 +477,11 @@ def main(argv=None):
     p.add_argument("input")
     p.add_argument("-i", type=int, default=0, help="initializer 0-4")
     p.add_argument("-c", type=int, default=0,
-                   help="coef update 0-1 (reference replay only; ignored)")
+                   help="coef update 0-1 (reference replay only)")
     p.add_argument("-d", type=int, default=0, help="dict update 0-3")
     p.add_argument("-l", type=int, default=0, help="learning loop 0-6")
     p.add_argument("-L", type=int, default=0,
-                   help="inner loop (MDL, reference replay only; ignored)")
+                   help="inner loop (MDL, reference replay only)")
     p.add_argument("-w", type=int, default=16, help="patch width")
     p.add_argument("-k", type=int, default=512, help="dictionary size")
     p.add_argument("-r", type=int, default=34503498, help="random seed")
@@ -319,6 +491,9 @@ def main(argv=None):
     p.add_argument("--out-dir", default=".")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
+    p.add_argument("--backend", choices=["device", "ref"], default="device",
+                   help="device: learn on --device; ref: the reference's "
+                        "rand48 replay on the host (bsvd_test's outputs)")
     p.set_defaults(fn=cmd_bsvd)
 
     p = sub.add_parser("bitplanes", help="PGM -> plane_NN.pbm")

@@ -1,1 +1,2 @@
-"""BIC1 container, the codec-8 causal encoder and the BICA archive."""
+"""Containers and codecs, the device encoders, the BICA archive, BSVD
+learning and the reference replays."""

@@ -1,8 +1,8 @@
 """BICA multi-page archive with a crash-safe checkpoint journal.
 
 Counterpart of ``binary_image_compression_tpu/models/archive.py``:
-``encode_pages`` (codec 8 and the windowed codecs 4/6/7 in strict mode, and
-codecs 10, 11 and 13 through ``codec.encode``, as in JAX), ``encode_archive``
+``encode_pages`` (causal codec 8 batched on the device, every other codec
+and mode through ``codec.encode``, as in JAX), ``encode_archive``
 with its journal
 (``_corpus_fingerprint``, ``_journal_read``, ``_journal_append``),
 ``page_count``, ``decode_page`` and ``decode_archive``.
@@ -33,23 +33,21 @@ def encode_pages(pages, params: CodecParams | None = None, *,
                  batch_size: int = 8, device="cuda",
                  done: dict[int, bytes] | None = None,
                  after_batch=None) -> list[bytes]:
-    """Encode a page list in batches of `batch_size`.  Causal pages of one
-    shape go through the device together (one search and one K2 launch per
-    batch); strict pages of codecs 4/6/7/8 go to the native host encoder
-    one at a time, as in the JAX package, which has no batched strict
-    kernel; codecs 10, 11 and 13 go to ``codec.encode`` page by page (codec
-    11 learns on `device`), as JAX sends them.  The codecs ``codec.encode``
-    does not take yet raise NotImplementedError.
+    """Encode a page list in batches of `batch_size`.  Causal codec-8 pages
+    of one shape go through the device together (one search and one K2
+    launch per batch, ``compress.encode_batch``); every other codec and
+    mode, causal codecs 4/6/7 and strict pages included, goes to
+    ``codec.encode`` page by page (the native host encoder for the windowed
+    codecs; codec 11 learns on `device`), as JAX sends them (JAX
+    archive.py:57-76).
 
     done: already-encoded {index: blob} to skip (resume).
     after_batch(new: dict[int, bytes]): called after every finished batch."""
     params = params or CodecParams(codec=8, strict=False)
-    by_codec = params.codec in (codec_mod.MEDRLE_CODEC, codec_mod.BSVD_CODEC,
-                                codec_mod.SCAB_CODEC)
-    if not by_codec and params.codec not in compress_mod.WINDOWED_CODECS:
-        raise NotImplementedError(
-            f"codec {params.codec}: encode_pages takes codecs 4/6/7/8, 10, "
-            "11 and 13 (codecs 1/2/3/12 are ROADMAP.md Queue 1 item 5)")
+    if params.codec not in codec_mod.VALID_CODECS:
+        raise ValueError(f"unknown codec id {params.codec}; "
+                         f"valid: {codec_mod.VALID_CODECS}")
+    batched = params.codec == 8 and not params.strict
     pages = [np.asarray(p, dtype=bool) for p in pages]
     blobs: list[bytes] = [b""] * len(pages)
     for i, b in (done or {}).items():
@@ -58,17 +56,15 @@ def encode_pages(pages, params: CodecParams | None = None, *,
     groups: dict[tuple, list[int]] = {}
     for i in range(len(pages)):
         if not blobs[i]:
-            key = () if params.strict or by_codec else pages[i].shape
+            key = pages[i].shape if batched else ()
             groups.setdefault(key, []).append(i)
 
     def encode(chunk):
-        if by_codec:
-            return [codec_mod.encode(pages[i], params, device=device)
-                    for i in chunk]
-        if params.strict:
-            return [compress_mod.host_encode(pages[i], params) for i in chunk]
-        return compress_mod.encode_batch(np.stack([pages[i] for i in chunk]),
-                                         params, device=device)
+        if batched:
+            return compress_mod.encode_batch(
+                np.stack([pages[i] for i in chunk]), params, device=device)
+        return [codec_mod.encode(pages[i], params, device=device)
+                for i in chunk]
 
     for idxs in groups.values():
         for s in range(0, len(idxs), batch_size):

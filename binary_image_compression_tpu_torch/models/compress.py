@@ -1,11 +1,13 @@
-"""The codec-8 encoders: device analysis + native record packing.
+"""The windowed device encoders: device analysis + native record packing.
 
 Counterpart of ``binary_image_compression_tpu/models/compress.py``:
 ``encode_analyze`` (:70, fused and banded variants),
 ``_finish_selection`` (:186), ``_finish_selection_fields`` (:232),
 ``encode_analyze_decided`` (:278), ``_split_decided`` / ``_pack_decided``
-(:322-356), ``_decide_modes`` (:359), ``encode`` (:397), ``encode_batch``
-(:483) and ``encode_strict`` (:1049).
+(:322-356), ``_decide_modes`` (:359), ``encode`` (:397, codecs 4/7/8 with
+its ``profile``; ``_assemble`` :448 is its call of native
+``bic_decide_pack``), ``encode_batch`` (:483, codec 8) and
+``encode_strict`` (:1049).
 
 Causal mode, per batch of same-sized pages, on the device:
   1. packed int32 pages in, unpacked to 0/1;
@@ -19,8 +21,11 @@ Causal mode, per batch of same-sized pages, on the device:
      block.
 Strict mode, one page: kernel K3 (ops/strict) runs the whole residual-
 substitution chain and yields the same record block.  Then per page on the
-host, native ``bic_pack_tiles`` writes the stream.  Streams are
-byte-identical to the JAX package's and the host encoder's.
+host, native ``bic_pack_tiles`` writes the stream.  Codecs 4 and 7 (causal,
+``encode``) take steps 1-3 with the complement trick off, the analysis dict
+is fetched in one copy, and native ``bic_decide_pack`` decides the modes
+and packs the records on the host, as in JAX (K2 is not on their path).
+Streams are byte-identical to the JAX package's and the host encoder's.
 
 Codec 13 (``encode_scab``, JAX :612): the page is uploaded packed and
 unpacked on the device, where ``scab_ctx_map`` (:592) gives every pixel's
@@ -61,24 +66,29 @@ from ..ops._cuda import resolve_device
 from ..ops.bitstream import (BitWriter, enum_encode, enum_nbits,
                              golomb_encode, words_to_bytes)
 from ..ops.entropy import GolombCoder
-from .codec import (MEDRLE_CODEC, SCAB_CODEC, CodecParams, _check_W,
-                    _encode_medrle, _encode_scab, _header, image_crc,
-                    scab_stripes)
+from ..utils.profiling import PipelineProfile
+from .codec import (MEDRLE_CODEC, SCAB_CODEC, WINDOWED_CODECS, CodecParams,
+                    _check_W, _encode_medrle, _encode_scab, _encode_windowed,
+                    _header, image_crc, scab_stripes)
 
 # pages the native host encoder took: causal R < W, strict shapes outside
 # strict.supported, strict archive pages (not a device launch)
 host_route = collections.Counter()
-WINDOWED_CODECS = (4, 6, 7, 8)      # what native.encode_windowed writes
 
 
-def _check_causal8(params):
-    if params.codec != 8:
-        raise NotImplementedError(
-            f"codec {params.codec}: compress.encode takes codec 8 only "
-            "(codec 11 is codec.encode, codec 13 encode_scab; codecs 4/7 are "
-            "ROADMAP.md Queue 1 item 4)")
+def _check_causal(params, codecs):
+    """The device paths take `codecs` in causal mode; the rest is
+    ``codec.encode`` (codec 6 and the non-windowed codecs are host codecs,
+    in both packages), ``encode_scab`` (codec 13) or ``encode_strict``."""
+    if params.codec not in codecs:
+        raise ValueError(
+            f"codec {params.codec}: this device encoder takes codecs "
+            f"{'/'.join(map(str, codecs))} in causal mode; codec 6 and the "
+            "host codecs 1/2/3/10/11/12 are codec.encode, codec 13 "
+            "encode_scab")
     if params.strict:
-        raise ValueError("strict mode is encoded by compress.encode_strict")
+        raise ValueError("strict mode is encoded by compress.encode_strict "
+                         "(codec 8) or codec.encode")
 
 
 def _med_tiles(P: torch.Tensor) -> torch.Tensor:
@@ -318,9 +328,7 @@ def host_encode(img: np.ndarray, params: CodecParams) -> bytes:
         raise ValueError(f"codec {params.codec}: the native windowed "
                          f"encoder writes codecs 4/6/7/8 only")
     host_route["pages"] += 1
-    hdr = _header(params, *img.shape, image_crc(img))
-    return native.encode_windowed(img, hdr, params.codec, params.strict,
-                                  params.W, params.resolved_T(), params.R)
+    return _encode_windowed(img, params)
 
 
 def _upload(pages: np.ndarray, W: int, dev) -> torch.Tensor:
@@ -335,19 +343,79 @@ def _upload(pages: np.ndarray, W: int, dev) -> torch.Tensor:
 
 
 def encode(img: np.ndarray, params: CodecParams | None = None, *,
-           device="cuda") -> bytes:
-    """Encode one page (codec 8, causal): device analysis on `device`, host
-    record packing.  Byte-identical to the host encoder."""
-    return encode_batch(np.asarray(img, dtype=bool)[None], params,
-                        device=device)[0]
+           device="cuda", profile: PipelineProfile | None = None) -> bytes:
+    """Encode one page with codec 4, 7 or 8 in causal mode: the analysis on
+    `device`, the record packing on the host.  Byte-identical to the host
+    encoder.
+
+    Codec 8 decides its modes on the device (K2) and fetches the record
+    block; codecs 4 and 7 fetch the analysis dict (``fetch_analysis``) and
+    decide and pack in native ``bic_decide_pack`` (JAX ``_assemble``
+    :448).  R < W
+    goes to the native host encoder.  profile: a ``PipelineProfile`` that
+    collects the stages ``grid_prep`` (pad, pack, upload),
+    ``device_analysis`` (up to and with the fetch) and ``native_pack``
+    (``compress --profile``)."""
+    prof = profile if profile is not None else PipelineProfile()
+    params = params or CodecParams(codec=8, strict=False)
+    _check_causal(params, (4, 7, 8))
+    _check_W(params)
+    img = np.asarray(img, dtype=bool)
+    if params.R < params.W:
+        return host_encode(img, params)
+    dev = resolve_device(device)
+    rows, cols = img.shape
+    W, T_thresh = params.W, params.resolved_T()
+    kw = dict(W=W, R=params.R, T_thresh=T_thresh, rows=rows, cols=cols)
+    with prof.stage("grid_prep", rows * cols // 8):
+        packed = _upload(img[None], W, dev)
+    if params.codec == 8:
+        with prof.stage("device_analysis"):
+            block = encode_analyze_decided(packed, **kw).cpu().numpy()
+        with prof.stage("native_pack"):
+            return pack_pages(block, img[None], params)[0]
+    with prof.stage("device_analysis"):
+        out = fetch_analysis(encode_analyze(
+            bitpack.unpack(packed, -(-cols // W) * W), invert=False, **kw))
+    with prof.stage("native_pack"):
+        hdr = _header(params, rows, cols, image_crc(img))
+        return native.decide_pack(
+            hdr, W * W, params.codec, out["weights4"][0],
+            out["has_cands"][0], out["idx_len"][0], out["inv"][0],
+            out["rank"][0], out["residual4"][0])[0]
+
+
+_ANALYSIS_FIELDS = ("rank", "n_cands", "inv", "has_cands", "idx_len")
+
+
+def fetch_analysis(out: dict) -> dict:
+    """``encode_analyze``'s dict on the host in one copy: the per-tile
+    fields, the four weights and the residual words side by side in one
+    int64 [B, T, 9 + 4 * nw] block, split again into numpy arrays
+    (residual4 as uint32 [B, T, 4, nw])."""
+    B, T, _, nw = out["residual4"].shape
+    block = torch.cat([out[k].to(torch.int64)[..., None]
+                       for k in _ANALYSIS_FIELDS]
+                      + [out["weights4"].to(torch.int64),
+                         out["residual4"].to(torch.int64).reshape(B, T, -1)],
+                      dim=-1).cpu().numpy()
+    n = len(_ANALYSIS_FIELDS)
+    got = {k: block[..., i] for i, k in enumerate(_ANALYSIS_FIELDS)}
+    got["inv"] = got["inv"] != 0
+    got["has_cands"] = got["has_cands"] != 0
+    got["weights4"] = block[..., n:n + 4]
+    got["residual4"] = block[..., n + 4:].astype(np.uint32).reshape(
+        B, T, 4, nw)
+    return got
 
 
 def encode_batch(pages: np.ndarray, params: CodecParams | None = None, *,
                  device="cuda") -> list[bytes]:
-    """Encode same-sized pages bool [B, rows, cols]: one K1 and one K2 launch
-    for the whole batch, then the native pack per page on host threads."""
+    """Encode same-sized pages bool [B, rows, cols] with codec 8: one K1 and
+    one K2 launch for the whole batch, then the native pack per page on
+    host threads (JAX's ``encode_batch`` takes codec 8 only too)."""
     params = params or CodecParams(codec=8, strict=False)
-    _check_causal8(params)
+    _check_causal(params, (8,))
     _check_W(params)
     pages = np.asarray(pages, dtype=bool)
     if params.R < params.W:

@@ -2,8 +2,11 @@
 
 Counterpart of ``binary_image_compression_tpu/native.py``, bound to the same
 source file but built into ``build/native/`` so the reference package's own
-library is left alone.  Bound: the codec-8 entry points (record packer,
-windowed decoder and host encoder, enumerative widths), codec 13's
+library is left alone.  Bound: the windowed codecs' entry points (record
+packer, the fused mode decision and record packer of codecs 4/7/8
+``bic_decide_pack``, windowed decoder and host encoder, enumerative
+widths), codec 12's context-adaptive coder (``bic_cabic_encode``,
+``bic_cabic_decode``), codec 13's
 (``bic_scab_encode``, ``bic_scab_decode``, ``bic_scab_rans_decode``) and
 codec 10's adaptive exp-Golomb run coder (``bic_eg_encode_runs``,
 ``bic_eg_decode_runs``).
@@ -65,6 +68,23 @@ def _declare(lib) -> None:
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_uint8),
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_long]
+    lib.bic_decide_pack.restype = ctypes.c_long
+    lib.bic_decide_pack.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.c_long, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_uint32), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_long,
+        ctypes.POINTER(ctypes.c_int32)]
+    lib.bic_cabic_encode.restype = ctypes.c_long
+    lib.bic_cabic_encode.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_long]
+    lib.bic_cabic_decode.restype = ctypes.c_int
+    lib.bic_cabic_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8)]
     lib.bic_decode_windowed.restype = ctypes.c_int
     lib.bic_decode_windowed.argtypes = [
         ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(ctypes.c_uint8)]
@@ -128,6 +148,42 @@ def pack_tiles(header: bytes, M: int, mode, inv, rank, idx_len, weight,
     return out[:ln].tobytes()
 
 
+def decide_pack(header: bytes, M: int, codec_id: int, weights4, has_cands,
+                idx_len, inv, rank, residual4) -> tuple[bytes, np.ndarray]:
+    """The mode decision (two adaptive Golomb contexts) and the record
+    packing of codec 4, 7 or 8 in one call (``bic_decide_pack``).
+
+    The arrays are one page's ``compress.encode_analyze`` output, [T, ...];
+    residual4 is the uint32 [T, 4, nwords] bank of the four candidate
+    residuals.  Returns (the stream, int32 [T] the mode of each tile)."""
+    lib = get_lib()
+    w4 = np.ascontiguousarray(weights4, dtype=np.int32)
+    n = w4.shape[0]
+    hc = np.ascontiguousarray(has_cands, dtype=np.uint8)
+    il = np.ascontiguousarray(idx_len, dtype=np.int32)
+    iv = np.ascontiguousarray(inv, dtype=np.uint8)
+    rk = np.ascontiguousarray(rank, dtype=np.int64)
+    r4 = np.ascontiguousarray(residual4, dtype=np.uint32)
+    if w4.shape != (n, 4) or r4.shape[:2] != (n, 4) or not all(
+            a.shape == (n,) for a in (hc, il, iv, rk)):
+        raise ValueError("decide_pack takes [T, 4] weights, [T, 4, nwords] "
+                         "residuals and [T] per-tile fields")
+    cap = len(header) + n * (M // 2 + 64) + 1024  # generous upper bound
+    out = np.zeros(cap, dtype=np.uint8)
+    mode = np.zeros(n, dtype=np.int32)
+    ln = lib.bic_decide_pack(header, len(header), n, M, codec_id,
+                             _p(w4, ctypes.c_int32), _p(hc, ctypes.c_uint8),
+                             _p(il, ctypes.c_int32), _p(iv, ctypes.c_uint8),
+                             _p(rk, ctypes.c_int64), _p(r4, ctypes.c_uint32),
+                             r4.shape[-1], _p(out, ctypes.c_uint8), cap,
+                             _p(mode, ctypes.c_int32))
+    if ln < 0:
+        raise RuntimeError(f"bic_decide_pack failed (rc={ln}): M={M} with "
+                           f"{r4.shape[-1]} residual words, or a {cap} B "
+                           f"buffer overflow")
+    return out[:ln].tobytes(), mode
+
+
 def decode_windowed(blob: bytes, rows: int, cols: int) -> np.ndarray:
     """Decode a codec 4/6/7/8 BIC1 stream to bool [rows, cols]."""
     lib = get_lib()
@@ -157,6 +213,34 @@ def encode_windowed(img: np.ndarray, header: bytes, codec_id: int,
     if n <= 0:
         raise RuntimeError(f"bic_encode_windowed failed (rc={n})")
     return out[:n].tobytes()
+
+
+def cabic_encode(img_u8: np.ndarray) -> bytes:
+    """Codec 12's payload (``bic_cabic_encode``): 10-bit causal-template
+    context-adaptive binary range coding of the page."""
+    lib = get_lib()
+    img_u8 = np.ascontiguousarray(img_u8, dtype=np.uint8)
+    rows, cols = img_u8.shape
+    cap = rows * cols + 4096
+    out = np.zeros(cap, dtype=np.uint8)
+    n = lib.bic_cabic_encode(_p(img_u8, ctypes.c_uint8), rows, cols,
+                             _p(out, ctypes.c_uint8), cap)
+    if n < 0:
+        raise RuntimeError(f"bic_cabic_encode overflowed its {cap} B "
+                           f"buffer (rc={n})")
+    return out[:n].tobytes()
+
+
+def cabic_decode(body: bytes, rows: int, cols: int) -> np.ndarray:
+    """Decode a codec-12 payload (``bic_cabic_decode``) to bool
+    [rows, cols]."""
+    out = np.zeros(rows * cols, dtype=np.uint8)
+    rc = get_lib().bic_cabic_decode(body, len(body), rows, cols,
+                                    _p(out, ctypes.c_uint8))
+    if rc != 0:
+        raise ValueError(f"bic_cabic_decode rejected the codec-12 payload "
+                         f"(rc={rc})")
+    return out.reshape(rows, cols).astype(bool)
 
 
 def scab_encode(img_u8: np.ndarray, tmpl: int, n_stripes: int, *,

@@ -1,1 +1,2 @@
-"""Image IO."""
+"""Image IO, bitplanes, mosaics, rand48, GF(2^m), checkpoints, profiling
+and roofline bounds."""

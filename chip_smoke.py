@@ -36,7 +36,14 @@ a noisy 512x512 page whose low plane is past the ladder, and
 stack on "device-assembly" and none elsewhere, one K7 launch per stack on
 "device-rans"; codec 10
 == the host route byte for byte, the bench stack at 104,658 B with codec
-10 and 76,918 B with rANS, every stream decoding to its page).  Every
+10 and 76,918 B with rANS, every stream decoding to its page) and codecs
+4 and 7 (``compress.encode`` of doc512 at W = 16, through K1, and W = 64,
+through K4, with the complement trick off and no K2 launch: 16,986 /
+17,094 and 22,367 / 22,375 B, with the encoder's stage profile), then the
+host codecs 1, 2, 3, 6 and 12 at their pinned bytes and the CLI's
+``compare`` and ``info`` as subprocesses.  K1 and K4 are also held
+against their plain versions with the complement trick off on doc512
+(W = 16 and W = 64), the shapes of codecs 4 and 7.  Every
 codec-8 stream is checked byte for byte against the native host encoder,
 the codec-11 stream and codec 13's device-entropy streams against the same
 encode on the CPU, codec 13's host-entropy streams against the native coder's own
@@ -62,6 +69,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -136,6 +144,7 @@ def check_k1(fs, pnm, dev) -> tuple[int, int]:
     cases = [("doc512", doc[None], 16, 128, True, 0),
              ("ragged75x101", rag[None], 8, 16, True, 0),
              ("ragged75x101 no-invert", rag[None], 8, 16, False, 0),
+             ("doc512 no-invert (codecs 4/7)", doc[None], 16, 128, False, 0),
              ("random256x320 (64-bit priority)", rnd[None], 32, 192, True, 0),
              ("random96x130 x2 W=5", small, 5, 10, True, 0),
              ("random96x130 x2 W=12 y_base=24", small, 12, 36, True, 24),
@@ -309,16 +318,19 @@ def check_k4(sw, fs, pnm, dev) -> tuple[int, int]:
     partial = np.random.RandomState(4).rand(1, 300, 200) < 0.3
     strip = np.random.RandomState(9).rand(1, 16, 105_000) < 0.2
     strip[:, :, 52_500:] = strip[:, :, :52_500]
-    # name, pages, W, R
-    cases = [("doc512", doc[None], 40, 64), ("doc512", doc[None], 64, 128),
-             ("ragged75x101", rag[None], 33, 40),
-             ("ragged75x101", rag[None], 48, 56),
+    # name, pages, W, R, invert
+    cases = [("doc512", doc[None], 40, 64, True),
+             ("doc512", doc[None], 64, 128, True),
+             ("doc512 no-invert (codecs 4/7)", doc[None], 64, 128, False),
+             ("ragged75x101", rag[None], 33, 40, True),
+             ("ragged75x101", rag[None], 48, 56, True),
              ("random300x200 (partial bottom and right tiles)", partial, 64,
-              128),
-             ("doc512 x4 batch", roll(4), 64, 128),
-             ("strip 16x105000 (outside K1's band budget)", strip, 8, 8)]
+              128, True),
+             ("doc512 x4 batch", roll(4), 64, 128, True),
+             ("strip 16x105000 (outside K1's band budget)", strip, 8, 8,
+              True)]
     worst = worst_plane = 0
-    for name, pages, W, R in cases:
+    for name, pages, W, R, invert in cases:
         B, rows, cols = pages.shape
         ny, nx = -(-rows // W), -(-cols // W)
         if W <= 32 and fs.fused_supported(ny, nx, W, R):
@@ -327,7 +339,7 @@ def check_k4(sw, fs, pnm, dev) -> tuple[int, int]:
         He = fs.plane_height(ny * W, W, R)
         E = sw._launch_plane(img, W, He)
         plain_E = fs._field_plane(img, W, He, nx * W)
-        kw = dict(W=W, R=R, T_thresh=1, cols=cols, invert=True)
+        kw = dict(W=W, R=R, T_thresh=1, cols=cols, invert=invert)
         got = sw._launch(E, ny, nx, **kw)
         want = sw.select_windows_plain(plain_E, ny, nx, **kw)
         torch.cuda.synchronize()
@@ -335,7 +347,7 @@ def check_k4(sw, fs, pnm, dev) -> tuple[int, int]:
             E, plain_E) else 0
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         worst, worst_plane = max(worst, err), max(worst_plane, err_p)
-        log(f"K4 {name}: W={W} R={R} B={B} T={ny * nx} plane "
+        log(f"K4 {name}: W={W} R={R} B={B} T={ny * nx} invert={invert} plane "
             f"max_abs_err={err_p}, search max_abs_err={err} "
             f"found={int(got[..., 3].sum())}")
         if err != 0 or err_p != 0:
@@ -393,8 +405,8 @@ def main_path(compress, archive, codec, native, pnm):
 
 def host_stream(codec, native, img, p) -> bytes:
     hdr = codec._header(p, *img.shape, codec.image_crc(img))
-    return native.encode_windowed(img, hdr, 8, p.strict, p.W, p.resolved_T(),
-                                  p.R)
+    return native.encode_windowed(img, hdr, p.codec, p.strict, p.W,
+                                  p.resolved_T(), p.R)
 
 
 def strict_path(compress, codec, native, pnm):
@@ -441,6 +453,124 @@ def banded_path(compress, codec, native, pnm):
                                  f"{BANDED_BYTES[(W, R)]}")
         log(f"banded: {name} W={W} R={R} -> {len(blob)} B, == host encoder, "
             f"round-trips ({t * 1e3:.1f} ms wall, first call)")
+
+
+# doc512's codec-4/7 bytes, causal: (codec, W, R) -> bytes
+CODEC47_BYTES = {(4, 16, 128): 16986, (7, 16, 128): 17094,
+                 (4, 64, 128): 22367, (7, 64, 128): 22375}
+CODEC47_REPS = 5
+
+
+def codec47_path(compress, codec, native, pnm, profiling, W: int, R: int):
+    """Codecs 4 and 7 as a user calls them: ``compress.encode`` of doc512
+    on the card (K1 at W = 16, K4 at W = 64, both with the complement
+    trick off; the modes decided and the records packed by native
+    ``bic_decide_pack``).  Each stream == the native host encoder's and
+    the pinned bytes, and round-trips; then CODEC47_REPS warm calls with
+    a ``PipelineProfile``, whose report is printed."""
+    doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
+    for cid in (4, 7):
+        p = codec.CodecParams(codec=cid, W=W, R=R, strict=False)
+        t0 = time.perf_counter()
+        blob = compress.encode(doc, p, device="cuda")
+        t_first = time.perf_counter() - t0
+        want = CODEC47_BYTES[(cid, W, R)]
+        if len(blob) != want:
+            raise AssertionError(f"codec {cid} doc512 W={W} is {len(blob)} "
+                                 f"B, not {want}")
+        if blob != host_stream(codec, native, doc, p):
+            raise AssertionError(f"codec {cid} doc512 W={W} != native host "
+                                 f"encoder stream")
+        if not np.array_equal(codec.decode(blob), doc):
+            raise AssertionError(f"codec {cid} doc512 W={W} does not "
+                                 f"round-trip")
+        prof = profiling.PipelineProfile()
+        walls = []
+        for _ in range(CODEC47_REPS):
+            t0 = time.perf_counter()
+            if compress.encode(doc, p, device="cuda", profile=prof) != blob:
+                raise AssertionError(f"codec {cid} W={W}: a warm call "
+                                     f"wrote other bytes")
+            walls.append((time.perf_counter() - t0) * 1e3)
+        log(f"codec {cid}: doc512 W={W} R={R} causal -> {len(blob)} B, == "
+            f"host encoder, round-trips; compress.encode wall "
+            f"{t_first * 1e3:.1f} ms first call, warm "
+            f"{', '.join(f'{t:.2f}' for t in walls)} ms (median "
+            f"{float(np.median(walls)):.2f}); profile of the "
+            f"{CODEC47_REPS} warm calls:")
+        for line in prof.report().splitlines():
+            log("  " + line)
+
+
+# doc512's bytes of the host codecs (codec 1 on the 128 x 128 crop)
+HOST_BYTES = {1: 1302, 2: 21914, 3: 21934, 6: 16986, 12: 16181}
+
+
+def host_codecs_phase(codec, pnm):
+    """The host codecs as a user calls them: ``codec.encode`` and
+    ``codec.decode`` of codecs 1 (doc512's 128 x 128 crop), 2, 3, 6 and 12
+    (doc512), each at its pinned bytes and round-tripping, timed on this
+    machine's host; then the CLI's ``compare`` and ``info`` on doc512 as
+    subprocesses, which must exit 0 (``compare`` with no codec failing and
+    its sizes those of the API)."""
+    path = os.path.join(FIXTURES, "doc512.pbm")
+    doc = pnm.read_pbm(path)
+    for cid, want in HOST_BYTES.items():
+        img = doc[:128, :128] if cid == 1 else doc
+        p = (codec.CodecParams(codec=12, W=0, T=0, R=128, strict=False)
+             if cid == 12 else
+             codec.CodecParams(codec=cid, W=16, R=128, strict=False))
+        t0 = time.perf_counter()
+        blob = codec.encode(img, p)
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = codec.decode(blob)
+        t_dec = time.perf_counter() - t0
+        if len(blob) != want:
+            raise AssertionError(f"codec {cid} is {len(blob)} B, not {want}")
+        if not np.array_equal(back, img):
+            raise AssertionError(f"codec {cid} does not round-trip")
+        log(f"host codec {cid}: {img.shape[0]}x{img.shape[1]} -> "
+            f"{len(blob)} B, round-trips; encode {t_enc * 1e3:.1f} ms, "
+            f"decode {t_dec * 1e3:.1f} ms (host wall)")
+    bic = os.path.join(REPO, "build", "chip_smoke_codec4.bic")
+    os.makedirs(os.path.dirname(bic), exist_ok=True)
+    with open(bic, "wb") as f:
+        f.write(codec.encode(doc, codec.CodecParams(codec=4, W=16, R=128,
+                                                    strict=False)))
+    want_sizes = {2: 21914, 3: 21934, 4: 16986, 7: 17094, 8: 17207,
+                  12: 16181, 13: 15097}
+    for argv in (["compare", path], ["info", bic]):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m",
+                            "binary_image_compression_tpu_torch", *argv],
+                           cwd=REPO, capture_output=True, text=True,
+                           timeout=600)
+        t = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"CLI {argv[0]} exited {r.returncode}: "
+                                 f"{r.stderr[-2000:]}")
+        for line in r.stdout.splitlines():
+            log(f"  {argv[0]}: {line}")
+        if argv[0] == "compare":
+            sizes = {}
+            for line in r.stdout.splitlines():
+                if "[" in line:
+                    raise AssertionError(f"compare: a codec failed: {line}")
+                m = re.match(r"codec (\d+) .* (\d+)B ", line)
+                if m:
+                    sizes[int(m[1])] = int(m[2])
+            bad = {c: (sizes.get(c), n) for c, n in want_sizes.items()
+                   if sizes.get(c) != n}
+            if bad:
+                raise AssertionError(f"compare sizes differ: {bad}")
+        else:
+            info = json.loads(r.stdout.strip().splitlines()[-1])
+            if (info["codec"], info["W"], info["rows"], info["cols"]) != \
+                    (4, 16, 512, 512):
+                raise AssertionError(f"info read {info}")
+        log(f"CLI {argv[0]} exited 0 ({t:.1f} s wall, process start "
+            f"included)")
 
 
 def no_maps_on_card(search, fn):
@@ -1855,7 +1985,7 @@ def main() -> int:
     from binary_image_compression_tpu_torch.ops import select_windows as sw
     from binary_image_compression_tpu_torch.ops import strict as st
     from binary_image_compression_tpu_torch.utils import (bitplanes, pnm,
-                                                          roofline)
+                                                          profiling, roofline)
 
     dev = torch.device("cuda", 0)
     gpu = card()
@@ -1909,6 +2039,20 @@ def main() -> int:
         raise AssertionError(f"{scab['rans_encode']} rans_encode launches "
                              f"for 2 mode-2 encodes")
     gray = gray_drives(codec, pnm, _cuda)
+    c47_k1 = drive("codec47 W=16", lambda: codec47_path(
+        compress, codec, native, pnm, profiling, 16, 128), _cuda,
+                   ("field_plane", "fused_search_select"))
+    c47_k4 = drive("codec47 W=64", lambda: codec47_path(
+        compress, codec, native, pnm, profiling, 64, 128), _cuda,
+                   ("banded_plane", "select_windows"))
+    for name, c, other in (("W=16", c47_k1, ("banded_plane",
+                                             "select_windows")),
+                           ("W=64", c47_k4, ("field_plane",
+                                             "fused_search_select"))):
+        ran = [k for k in ("decide_modes",) + other if c.get(k)]
+        if ran:
+            raise AssertionError(f"codec47 {name} path launched {ran}")
+    host_codecs_phase(codec, pnm)
 
     img, _, out = stage_times(compress, fs, bitpack, codec, pnm, dev, gpu)
     kt = kernel_times(compress, fs, dc, roofline, img, out, serial, dev,
@@ -1934,18 +2078,21 @@ def main() -> int:
                     bound_ms=bound[0], bound_by=bound[1], library_ms=lib)
     kernels = [
         entry("field_plane", "fused_search.cu", "pallas_kernels.py:451",
-              causal["field_plane"], err1p, *kt["plane"]),
+              causal["field_plane"] + c47_k1["field_plane"], err1p,
+              *kt["plane"]),
         entry("fused_search_select", "fused_search.cu",
-              "pallas_kernels.py:541", causal["fused_search_select"], err1,
-              *kt["k1"]),
+              "pallas_kernels.py:541", causal["fused_search_select"]
+              + c47_k1["fused_search_select"], err1, *kt["k1"]),
         entry("decide_modes", "decide_modes.cu", "pallas_decide.py:100",
               causal["decide_modes"], err2, *kt["k2"]),
         entry("strict_analyze", "strict_analyze.cu", "pallas_strict.py:61",
               strict_c["strict_analyze"], err3, k3, k3p, b3, None),
         entry("banded_plane", "select_windows.cu", "search.py:203",
-              banded["banded_plane"], err4p, *plane4),
+              banded["banded_plane"] + c47_k4["banded_plane"], err4p,
+              *plane4),
         entry("select_windows", "select_windows.cu", "pallas_kernels.py:407",
-              banded["select_windows"], err4, *k4t),
+              banded["select_windows"] + c47_k4["select_windows"], err4,
+              *k4t),
         entry("packed_dist_matrix", "packed_dist.cu", "pallas_kernels.py:45",
               bsvd_c.get("packed_dist_matrix", 0), err5, k5, k5p, b5, lib5),
         entry("packed_row_weight", "packed_dist.cu", "pallas_kernels.py:728",

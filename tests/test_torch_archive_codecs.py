@@ -1,8 +1,9 @@
 """``archive.encode_pages`` on every codec the JAX package has beyond the
-windowed ones, in both modes: each case either raises NotImplementedError
-or writes pages that the port decodes to the input (codec 10's and codec
-13's pages also equal JAX's and decode in JAX).  The native windowed encoder refuses
-other codec ids instead of heading a windowed payload with them."""
+windowed ones, in both modes: each case writes pages that the port
+decodes to the input (every codec's but codec 11's, whose default draw is
+the port's own, also equal JAX's and decode in JAX).  The native windowed
+encoder refuses other codec ids instead of heading a windowed payload with
+them."""
 
 import os
 
@@ -24,14 +25,10 @@ def test_encode_pages_writes_decodable_pages_or_raises(codec_id, strict):
     pages = [img, np.ascontiguousarray(img[::-1])]
     p = codec.CodecParams(codec=codec_id, W=16 if codec_id == 11 else 12,
                           T=0, R=0, strict=strict)
-    if codec_id not in (10, 11, 13):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            archive.encode_pages(pages, p, device="cpu")
-        return
     blobs = archive.encode_pages(pages, p, device="cpu")
     for blob, page in zip(blobs, pages):
         np.testing.assert_array_equal(codec.decode(blob), page)
-    if codec_id in (10, 13):
+    if codec_id != 11:
         jp = jcodec.CodecParams(codec=codec_id, W=12, T=0, R=0, strict=strict)
         assert blobs == jarchive.encode_pages(pages, jp)
         for blob, page in zip(blobs, pages):

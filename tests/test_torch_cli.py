@@ -50,13 +50,114 @@ def test_cli_archive_extract(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--codec", "12"], "item 5"), (["--codec", "7"], "item 4"),
-    (["--codec", "4"], "item 4")])
+    (["--codec", "10"], "item 7"), (["--codec", "11"], "item 7"),
+    (["--codec", "13"], "item 7")])
 def test_cli_unported_options_name_the_roadmap_item(tmp_path, argv, item):
+    """Archives of codecs 10, 11 and 13 are what the CLI still lacks
+    (ROADMAP.md Queue 1 item 7); every codec compresses."""
     src = os.path.join(FIX, "text64.pbm")
     with pytest.raises(SystemExit, match=item):
-        cli.main(["compress", src, str(tmp_path / "a.bic"), *argv,
+        cli.main(["archive", src, str(tmp_path / "a.bica"), *argv,
                   "--device", "cpu"])
+    with pytest.raises(SystemExit, match="unknown codec"):
+        cli.main(["compress", src, str(tmp_path / "a.bic"), "--codec", "5",
+                  "--device", "cpu"])
+
+
+def _both(capsys, argv, jargv=None):
+    """stdout of the port's CLI and of JAX's for the same arguments."""
+    from binary_image_compression_tpu import cli as jcli
+    cli.main(argv)
+    got = capsys.readouterr().out
+    jcli.main(jargv or argv)
+    return got, capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", [
+    ["--driver", "1", "-W", "8"], ["--driver", "3", "-W", "8", "-T", "4"],
+    ["--driver", "4", "-W", "8", "-T", "2", "-R", "32"],
+    ["--driver", "8", "-W", "8", "-R", "32"]])
+def test_cli_estimate_prints_what_jax_prints(capsys, argv):
+    src = os.path.join(FIX, "text64.pbm")
+    got, want = _both(capsys, ["estimate", src, *argv])
+    assert got == want and got.startswith("{")
+
+
+def test_cli_compare_and_info_print_what_jax_prints(tmp_path, capsys):
+    src = os.path.join(FIX, "noise96x80.pbm")
+    got, want = _both(capsys, ["compare", src, "-W", "8", "-R", "32"])
+    assert got == want
+    assert len(got.splitlines()) == 9 and "[" not in got
+    bic, arc = str(tmp_path / "a.bic"), str(tmp_path / "c.bica")
+    cli.main(["compress", src, bic, "--codec", "7", "-W", "8", "-R", "16",
+              "--mode", "strict", "--device", "cpu"])
+    cli.main(["archive", src, src, arc, "--codec", "2", "-W", "8",
+              "--device", "cpu"])
+    gray = os.path.join(FIX, "gray64.pgm")
+    bicg = str(tmp_path / "g.bic")
+    cli.main(["compress", gray, bicg, "--device", "cpu"])
+    capsys.readouterr()
+    for path in (bic, arc, bicg):
+        got, want = _both(capsys, ["info", path])
+        assert got == want
+    assert '"codec": 7, "mode": "strict"' in _both(capsys, ["info", bic])[0]
+    with pytest.raises(SystemExit, match="not a BIC"):
+        cli.main(["info", src])
+
+
+@pytest.mark.parametrize("codec_id,argv", [
+    ("1", ["-W", "8"]), ("2", ["-W", "8"]), ("3", ["-W", "8", "-T", "4"]),
+    ("4", ["-W", "8", "-R", "32"]), ("6", ["-W", "8", "--mode", "strict"]),
+    ("7", ["-W", "8", "-R", "32"]), ("12", [])])
+def test_cli_host_codecs_equal_jax_cli(tmp_path, codec_id, argv):
+    """compress --codec 1/2/3/4/6/7/12 writes the JAX CLI's bytes (both on
+    the host) and decompress gives the page back."""
+    from binary_image_compression_tpu import cli as jcli
+    src = os.path.join(FIX, "text64.pbm")
+    bic, jbic = str(tmp_path / "a.bic"), str(tmp_path / "j.bic")
+    out = str(tmp_path / "b.pbm")
+    cli.main(["compress", src, bic, "--codec", codec_id, *argv, "--device",
+              "cpu"])
+    jcli.main(["compress", src, jbic, "--codec", codec_id, *argv])
+    with open(bic, "rb") as f1, open(jbic, "rb") as f2:
+        assert f1.read() == f2.read()
+    cli.main(["decompress", bic, out])
+    with open(src, "rb") as f1, open(out, "rb") as f2:
+        assert f1.read() == f2.read()
+
+
+def test_cli_compress_profile_prints_the_stages(tmp_path, capsys):
+    src = os.path.join(FIX, "text64.pbm")
+    cli.main(["compress", src, str(tmp_path / "a.bic"), "-W", "8", "-R",
+              "32", "--profile", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split()[0] for ln in lines[:3]] == [
+        "grid_prep", "device_analysis", "native_pack"]
+    assert all("MB/s" in ln and ln.endswith("x1") for ln in lines[:3])
+    assert "B raw ->" in lines[3]
+
+
+@pytest.mark.parametrize("flags", [
+    ["-w", "8", "-k", "16", "-I", "1"],
+    ["-w", "8", "-k", "8", "-I", "1", "-i", "1", "-c", "1", "-d", "1"],
+    ["-w", "8", "-k", "16", "-I", "1", "-l", "4"]])
+def test_cli_bsvd_reference_backend_equals_jax_cli(tmp_path, capsys, flags):
+    """bsvd --backend ref is JAX's default backend: the same PBMs and the
+    same |E| line."""
+    from binary_image_compression_tpu import cli as jcli
+    src = os.path.join(FIX, "text64.pbm")
+    (tmp_path / "port").mkdir()
+    (tmp_path / "jax").mkdir()
+    cli.main(["bsvd", src, *flags, "--backend", "ref", "--out-dir",
+              str(tmp_path / "port")])
+    got = capsys.readouterr().out
+    jcli.main(["bsvd", src, *flags, "--backend", "ref", "--out-dir",
+               str(tmp_path / "jax")])
+    assert got == capsys.readouterr().out
+    for f in sorted(os.listdir(tmp_path / "jax")):
+        with open(tmp_path / "port" / f, "rb") as f1, \
+                open(tmp_path / "jax" / f, "rb") as f2:
+            assert f1.read() == f2.read(), f
 
 
 @pytest.mark.parametrize("argv", [["--codec", "13"],

@@ -123,8 +123,9 @@ def test_r_less_than_w_routes_to_host_encoder():
 
 def test_unported_params_and_devices_raise():
     img = np.zeros((32, 32), dtype=bool)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        compress.encode(img, codec.CodecParams(codec=7, strict=False),
+    # codec 6 is a host codec in both packages (codecs 4/7 are ported)
+    with pytest.raises(ValueError, match="codec 6 and the host codecs"):
+        compress.encode(img, codec.CodecParams(codec=6, strict=False),
                         device="cpu")
     with pytest.raises(ValueError, match="encode_strict"):
         compress.encode(img, codec.CodecParams(codec=8, strict=True),
@@ -137,9 +138,10 @@ def test_unported_params_and_devices_raise():
         compress.encode(img, codec.CodecParams(codec=8, W=65, strict=False),
                         device="cpu")
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA"):
-            compress.encode(img, codec.CodecParams(codec=8, W=8, R=16,
-                                                   strict=False))
+        for cid in (4, 8):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                compress.encode(img, codec.CodecParams(codec=cid, W=8, R=16,
+                                                       strict=False))
 
 
 def test_params_from_jax_and_header_match():

@@ -224,10 +224,42 @@ def test_k4_kernel_matches_plain(dev, rows, cols, W, R, B):
     assert int(got[..., 3].sum()) > 0
 
 
+def test_k4_kernel_no_invert_matches_plain_on_doc512(dev):
+    """K4 with the complement trick off (codecs 4 and 7) at doc512 W=64
+    R=128, field for field against its plain version."""
+    doc = pnm.read_pbm(os.path.join(FIX, "doc512.pbm"))
+    W, R = 64, 128
+    img = torch.from_numpy(doc[None]).to(dev)
+    kw = dict(W=W, R=R, T_thresh=1, cols=512, invert=False)
+    got, _, E = sw.select_windows(img, 8, 8, **kw)
+    want = sw.select_windows_plain(fs._field_plane(img, W, E.shape[1], 512),
+                                   8, 8, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not bool(got[..., 2].any())      # no tile inverted
+
+
 def _host(img, p):
     hdr = codec._header(p, *img.shape, codec.image_crc(img))
-    return native.encode_windowed(img, hdr, 8, p.strict, p.W, p.resolved_T(),
-                                  p.R)
+    return native.encode_windowed(img, hdr, p.codec, p.strict, p.W,
+                                  p.resolved_T(), p.R)
+
+
+@pytest.mark.parametrize("codec_id", [4, 7])
+@pytest.mark.parametrize("W,want", [(16, ("field_plane",
+                                          "fused_search_select")),
+                                    (64, ("banded_plane", "select_windows"))])
+def test_codec47_on_card_matches_host_encoder(dev, codec_id, W, want):
+    """Codecs 4 and 7 through K1 (W=16) or K4 (W=64) with the complement
+    trick off and native bic_decide_pack; K2 does not run."""
+    img = pnm.read_pbm(os.path.join(FIX, "doc512.pbm"))
+    p = codec.CodecParams(codec=codec_id, W=W, R=128, strict=False)
+    before = dict(_cuda.launches)
+    blob = compress.encode(img, p, device="cuda")
+    assert blob == _host(img, p)
+    ran = {k for k, n in _cuda.launches.items() if n != before.get(k, 0)}
+    assert ran == set(want)
+    np.testing.assert_array_equal(codec.decode(blob), img)
 
 
 def test_encode_on_card_matches_host_encoder(dev):
