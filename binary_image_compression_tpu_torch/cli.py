@@ -24,11 +24,15 @@ static table and interleaved rANS, kernel K7), and every other codec (1,
 2, 3, 4, 6, 7, 10, 11, 12) to ``codec.encode`` on the host (codec 11
 learns on ``--device``; codecs 4 and 7 reach the device encoder through
 the API, ``compress.encode``).  ``--codec auto`` keeps the smaller of codec
-13 (host entropy) and codec 8.  Archives take every codec but 10, 11 and
-13 (causal codec 8 batched on the device, the rest page by page on the
-host).  ``compress`` also takes .pgm/.pnm input, coded plane by plane
-into a BICG stream, and .ppm, into a BICC stream (``decompress`` writes
-them back): with no codec flag, each plane takes the smaller
+13 (host entropy) and codec 8.  ``compress --shard tiles`` splits one
+page's tile rows over the ranks of a ``torch.distributed`` world (causal
+codecs 4/7/8; run it under ``torchrun --nproc-per-node N``, or alone as a
+world of 1; rank 0 writes the output).  Archives take every codec (causal
+codec 8 batched on the device, the rest page by page through
+``codec.encode``).  ``compress`` also takes .pgm/.pnm input, coded plane
+by plane into a BICG stream, and .ppm, into a BICC stream
+(``decompress`` writes them back): with no codec flag, each plane takes
+the smaller
 of codec 13 and codec 10 on the host; explicit flags (JAX's rule: any of
 --codec, -W, -T, -R, --mode off its default) code every plane with them,
 ``--codec 10`` with the MED on the device and the native EG runs; and
@@ -38,8 +42,7 @@ device.  ``estimate`` prints the reference drivers' codelength reports
 ``info`` a container's header.  ``bsvd`` runs bsvd_test on the device
 (``--backend device``, the default; JAX's ``--backend tpu``) or as the
 rand48 reference replay (``--backend ref``, ``models/bsvd_ref``, JAX's
-default).  Codec-10, -11 and -13 archives exit with the ROADMAP item that
-will port them.
+default).
 """
 
 from __future__ import annotations
@@ -59,21 +62,12 @@ BSVD_INITS = {0: "neighbor", 1: "partition", 2: "random_centroids",
               3: "random_centroids", 4: "graph_grow"}
 
 
-# archives of these codecs are ROADMAP.md Queue 1 item 7
-UNPORTED_ARCHIVE_CODECS = (10, 11, 13)
-
-
 def _params(args):
     from .models import codec
     cid = int(args.codec) if args.codec.isdigit() else None
     if cid not in codec.VALID_CODECS:
         sys.exit(f"{args.cmd} --codec {args.codec}: unknown codec; valid: "
                  f"{codec.VALID_CODECS}, or auto (compress)")
-    if args.cmd == "archive" and cid in UNPORTED_ARCHIVE_CODECS:
-        sys.exit(f"archive --codec {cid} is not ported yet: codec-10, "
-                 "codec-11 and codec-13 archives are ROADMAP.md Queue 1 "
-                 "item 7; use the JAX package "
-                 "(python -m binary_image_compression_tpu)")
     return codec.CodecParams(codec=cid, W=args.W, T=args.T, R=args.R,
                              strict=args.mode == "strict")
 
@@ -96,8 +90,8 @@ def _add_codec_opts(p):
                         "interleaved rANS built on the device (mode 2; for "
                         "PGM/PPM input every plane, whatever the codec)")
     p.add_argument("--profile", action="store_true",
-                   help="codec 8, causal: print the encoder's stages (wall "
-                        "clock and MB/s)")
+                   help="codec 8, causal, or --shard tiles: print the "
+                        "encoder's stages (wall clock and MB/s)")
 
 
 def _encode8(img, params, device, profile=None):
@@ -116,6 +110,8 @@ def cmd_compress(args):
     if ext != ".pbm":
         sys.exit(f"{args.input}: compress takes .pbm, .pgm, .pnm or .ppm")
     img = pnm.read_pbm(args.input)
+    if args.shard == "tiles":
+        return _compress_tile_sharded(args, img)
     if args.codec == "auto":
         # the smaller of codec 13 (host entropy) and codec 8 (JAX cli.py:127)
         p13 = codec.CodecParams(codec=13, W=0, T=0, R=0)
@@ -139,6 +135,45 @@ def cmd_compress(args):
         else:
             blob = codec.encode(img, params, device=args.device)
     _write(args, blob, img.size // 8, f", codec {blob[8]}")
+
+
+def _compress_tile_sharded(args, img):
+    """--shard tiles (JAX cli.py:86-95): the page's tile rows over every
+    rank of the world (torchrun's, the BIC_* variables', or this process
+    alone); NCCL for a CUDA --device, gloo for the CPU, unless
+    BIC_DIST_BACKEND says otherwise.  Rank 0 writes the output."""
+    import torch
+    import torch.distributed as dist
+
+    from .parallel import mesh as pmesh
+    from .parallel import multihost, tileshard
+    params = _params(args)
+    if params.codec not in (4, 7, 8) or params.strict:
+        sys.exit("--shard tiles requires a windowed codec (4/7/8) in causal "
+                 "mode")
+    owned = not dist.is_initialized()
+    if not multihost.init_distributed(device=args.device):
+        multihost.init_single_process(device=args.device)
+    try:
+        dev = args.device
+        if dist.get_backend() == "nccl":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        n = dist.get_world_size()
+        m = pmesh.make_mesh(n, data=n, model=1)
+        prof = None
+        if args.profile:
+            from .utils.profiling import PipelineProfile
+            prof = PipelineProfile()
+        blob = tileshard.encode_tile_sharded(m, img, params, device=dev,
+                                             profile=prof)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+    if blob is not None:
+        if prof is not None:
+            print(prof.report())
+        _write(args, blob, img.size // 8,
+               f", codec {blob[8]}, {n} tile shards")
 
 
 def _compress_gray(args, ext):
@@ -431,6 +466,11 @@ def main(argv=None):
     p.add_argument("input")
     p.add_argument("output")
     _add_codec_opts(p)
+    p.add_argument("--shard", choices=["none", "tiles"], default="none",
+                   help="tiles: split the page's tile rows over the ranks "
+                        "of a torch.distributed world (run under torchrun "
+                        "--nproc-per-node N, or alone as a world of 1; "
+                        "codecs 4/7/8, causal; byte-identical streams)")
     p.set_defaults(fn=cmd_compress)
 
     p = sub.add_parser("decompress", help=".bic -> PBM/PGM/PPM")

@@ -42,7 +42,10 @@
 //    key at or above it.  So a run's winner is found by 32-bit compares
 //    (run_best) and only its 64-bit priority is formed.
 //  * Masks and keys use absolute rows (y_base, negative under tile
-//    sharding); loads use frame rows, clamped inside the plane.
+//    sharding); loads use frame rows, clamped inside the plane.  The tiles
+//    start at frame row row0: under tile sharding (parallel/tileshard.py)
+//    the frame is R halo rows from the shards above, then the shard's own
+//    tile rows, so row0 = R; a whole page has row0 = 0.
 //  * The block minimum is block_min_u64; thread 0 decodes it.  There is no
 //    chain, so no atomics: at doc512 a page is 1,024 blocks of 256 threads
 //    (a batch of 32 is 32,768), taken bottom tile row first, since the
@@ -69,7 +72,7 @@ constexpr int kThreads = 256;
 constexpr int kRun = 12;  // window rows per item
 
 struct Params {
-  int He, We, nx, T, W, R, T_thresh, cols, invert, y_base;
+  int He, We, nx, T, W, R, T_thresh, cols, invert, y_base, row0;
   bic::Layout lay;
 };
 
@@ -99,7 +102,8 @@ fused_search_kernel(const uint32_t* __restrict__ E, int32_t* __restrict__ out,
   // bottom tile row first: the heaviest tiles start first and the light
   // top rows (fewer window rows above them) fill the tail
   const int t = p.T - 1 - blockIdx.x, b = blockIdx.y;
-  const int i0 = (t / p.nx) * W, j0 = (t % p.nx) * W;
+  // frame rows: the tile, and its band origin clipped inside the plane
+  const int i0 = p.row0 + (t / p.nx) * W, j0 = (t % p.nx) * W;
   const int oy = min(max(i0 - R, 0), max(p.He - W - R, 0));
   const uint32_t* Eb = E + (size_t)b * p.He * p.We;
 
@@ -211,17 +215,20 @@ extern "C" int bic_field_plane(const void* img, void* E, int B, int gh,
   return (int)cudaGetLastError();
 }
 
-// E: uint32 [B, He, We] field planes; out: int32 [B, T, 8].  Launches on
-// `stream` and returns cudaGetLastError().
+// E: uint32 [B, He, We] field planes; out: int32 [B, T, 8].  The T / nx
+// tile rows start at frame row row0; y_base is the absolute row of frame
+// row 0.  Launches on `stream` and returns cudaGetLastError().
 extern "C" int bic_fused_search_select(const void* E, void* out, int B,
                                        int He, int We, int nx, int T, int W,
                                        int R, int T_thresh, int cols,
-                                       int invert, int y_base, int span,
-                                       int off1, int kb, int db,
+                                       int invert, int y_base, int row0,
+                                       int span, int off1, int kb, int db,
                                        void* stream) {
   if (B <= 0 || T <= 0) return (int)cudaSuccess;
-  if (W < 1 || W > 32 || R < W || B > 65535) return (int)cudaErrorInvalidValue;
-  Params p{He, We, nx, T, W, R, T_thresh, cols, invert, y_base,
+  if (W < 1 || W > 32 || R < W || B > 65535 || nx <= 0 || row0 < 0 ||
+      row0 + (T / nx) * W > He)
+    return (int)cudaErrorInvalidValue;
+  Params p{He, We, nx, T, W, R, T_thresh, cols, invert, y_base, row0,
            bic::Layout{span, off1, kb, db}};
   dim3 grid((unsigned)T, (unsigned)B);
   cudaStream_t s = (cudaStream_t)stream;

@@ -55,6 +55,12 @@
 //  * The plane kernel builds E from the pages' 0/1 bytes, one thread per
 //    field and three warp ballots per 32 fields, with the zero rows below the
 //    grid that keep a bottom tile's band inside the plane.
+//  * As in K1, the tiles start at frame row row0 and the windows, the top
+//    clamp and the keys use absolute rows (frame row + y_base): under tile
+//    sharding the frame is R halo rows, then the shard's tile rows (row0 =
+//    R, y_base = the shard's first row - R).  The search loads through the
+//    plane's pointer moved by -y_base rows, so its loop indexes absolute
+//    rows exactly as the whole-page search does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,7 +76,7 @@ constexpr int kRun = 6;            // window rows per item
 constexpr int kBlocksTarget = 2112;  // blocks per launch to aim for (132 x 16)
 
 struct Params {
-  int He, We, nx, T, W, R, T_thresh, cols, invert, slices;
+  int He, We, nx, T, W, R, T_thresh, cols, invert, slices, y_base, row0;
   bic::Layout lay;
 };
 
@@ -112,7 +118,8 @@ banded_search_kernel(const u64* __restrict__ E, u64* __restrict__ best_out,
   // bottom tile row first: the heaviest tiles start first
   const int t = p.T - 1 - (int)(blockIdx.x / p.slices);
   const int slice = (int)(blockIdx.x % p.slices), b = blockIdx.y;
-  const int i0 = (t / p.nx) * W, j0 = (t % p.nx) * W;
+  // frame rows: the tile, and its band origin clipped inside the plane
+  const int i0 = p.row0 + (t / p.nx) * W, j0 = (t % p.nx) * W;
   const int oy = min(max(i0 - R, 0), max(p.He - W - R, 0));
   const u64* Eb = E + (size_t)b * p.He * p.We;
 
@@ -121,11 +128,15 @@ banded_search_kernel(const u64* __restrict__ E, u64* __restrict__ best_out,
   if (threadIdx.x < W) tf[threadIdx.x] = Eb[(size_t)(i0 + threadIdx.x) * p.We + j0];
   __syncthreads();
 
+  // absolute rows (frame row + y_base) for the windows, the keys and the
+  // loads: absolute row y of the plane is row y of Ea
+  const int i0a = i0 + p.y_base, oya = oy + p.y_base;
+  const u64* Ea = Eb - (long long)p.y_base * p.We;
   const int minj = max(j0 - R, 0), maxj = min(j0 + R, p.cols - W);
-  // every column's window rows start at ya; they end at i0 where the column
-  // is in grid 1 too, else at i0 - W, and within the band
-  const int ya = max(max(i0 - R, 0), oy);
-  const int yhi = min(i0, oy + R);
+  // every column's window rows start at ya; they end at i0a where the
+  // column is in grid 1 too, else at i0a - W, and within the band
+  const int ya = max(max(i0a - R, 0), oya);
+  const int yhi = min(i0a, oya + R);
   const int ncol = maxj - minj + 1;
   const int n = ncol > 0 && yhi >= ya ? (yhi - ya + kRun) / kRun * ncol : 0;
 
@@ -140,21 +151,21 @@ banded_search_kernel(const u64* __restrict__ E, u64* __restrict__ best_out,
     for (int idx = first; idx < n; idx += step) {
       const int x = minj + c, y0 = ya + q * kRun;
       const bool g1 = j0 >= W && x <= j0 - W;
-      const int ylast = min(g1 ? i0 : i0 - W, oy + R);
+      const int ylast = min(g1 ? i0a : i0a - W, oya + R);
       if (y0 <= ylast) {
-        const u64* col = Eb + x;
-        const int fmax = p.He - 1;
+        const u64* col = Ea + x;
+        const int ymax = p.He - 1 + p.y_base;  // the plane's last row
         auto ld = [&](int r) {
-          return __ldg(col + (size_t)min(y0 + r, fmax) * p.We);
+          return __ldg(col + (long long)min(y0 + r, ymax) * p.We);
         };
         int d[kRun];
         window_dists64<kRun>(ld, tf, W, d);
         const u64 pr = bic::run_best<kRun>(
             d, y0, ylast, W * W, p.T_thresh, p.invert,
             [&](int y) -> long long {
-              return g1 && y >= i0 - W
-                         ? (long long)(i0 - y) * p.lay.span + (j0 - W - x)
-                         : p.lay.off1 + (long long)(i0 - W - y) * p.lay.span +
+              return g1 && y >= i0a - W
+                         ? (long long)(i0a - y) * p.lay.span + (j0 - W - x)
+                         : p.lay.off1 + (long long)(i0a - W - y) * p.lay.span +
                                (maxj - x);
             },
             p.lay);
@@ -178,16 +189,17 @@ __global__ void banded_decode_kernel(const u64* __restrict__ best,
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)B * p.T) return;
   const int t = (int)(i % p.T);
-  const long long i0 = (long long)(t / p.nx) * p.W;
+  // the band origin in frame rows, then the tile and band in absolute rows
+  const long long i0 = p.row0 + (long long)(t / p.nx) * p.W;
   const long long j0 = (long long)(t % p.nx) * p.W;
   const long long oyr = i0 - p.R > 0 ? i0 - p.R : 0;
   const long long oymax = p.He - p.W - p.R > 0 ? p.He - p.W - p.R : 0;
-  const long long oy = oyr < oymax ? oyr : oymax;
-  const bic::Selected s =
-      bic::packed_decode(best[i], i0, j0, p.W, p.R, p.cols, p.lay);
+  const long long oya = (oyr < oymax ? oyr : oymax) + p.y_base;
+  const bic::Selected s = bic::packed_decode(best[i], i0 + p.y_base, j0, p.W,
+                                             p.R, p.cols, p.lay);
   int32_t* o = out + i * 8;
   o[0] = (int32_t)s.bestd;
-  o[1] = s.found ? (int32_t)(s.y - oy) : 0;
+  o[1] = s.found ? (int32_t)(s.y - oya) : 0;
   o[2] = s.inv;
   o[3] = s.found;
   o[4] = (int32_t)s.rank;
@@ -238,14 +250,17 @@ extern "C" int bic_banded_plane(const void* img, void* E, int B, int gh,
 }
 
 // E: uint64 [B, He, We] field planes; best: uint64 [B, T] scratch; out:
-// int32 [B, T, 8].  Launches on `stream` and returns cudaGetLastError().
+// int32 [B, T, 8].  The T / nx tile rows start at frame row row0; y_base
+// is the absolute row of frame row 0.  Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int bic_select_windows(const void* E, void* best, void* out,
                                   int B, int He, int We, int nx, int T, int W,
                                   int R, int T_thresh, int cols, int invert,
-                                  int span, int off1, int kb, int db,
-                                  void* stream) {
+                                  int y_base, int row0, int span, int off1,
+                                  int kb, int db, void* stream) {
   if (B <= 0 || T <= 0) return (int)cudaSuccess;
-  if (W < 1 || W > 64 || R < W || B > 65535 || He < W + R)
+  if (W < 1 || W > 64 || R < W || B > 65535 || He < W + R || nx <= 0 ||
+      row0 < 0 || row0 + (T / nx) * W > He)
     return (int)cudaErrorInvalidValue;
   // slices per tile: enough blocks to fill the card, but no more than the
   // fullest tile's items fill (its window rows are at most R + 1)
@@ -255,8 +270,8 @@ extern "C" int bic_select_windows(const void* E, void* best, void* out,
   long long slices = want < cap ? want : cap;
   slices = slices < 1 ? 1 : slices;
   if ((long long)T * slices > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  Params p{He, We, nx, T, W, R, T_thresh, cols, invert, (int)slices,
-           bic::Layout{span, off1, kb, db}};
+  Params p{He, We, nx, T, W, R, T_thresh, cols, invert, (int)slices, y_base,
+           row0, bic::Layout{span, off1, kb, db}};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err =
       cudaMemsetAsync(best, 0xff, sizeof(u64) * (size_t)B * T, s);

@@ -17,11 +17,10 @@ codelength.
   up E before the next: a serial chain by the reference's semantics
   (bsvd.cpp:463-735), a Python loop over tensors here.
 * The initializers split into a draw and a deterministic core.  The draw
-  uses a ``torch.Generator`` seeded from ``seed`` on the CPU, so a CPU run
-  and a CUDA run start from the same state.  It does not replay JAX's
-  threefry draws: for the same seed the two packages start from different
-  states, so their codec-11 streams differ.  The tests inject JAX's draws
-  into the cores, and from JAX's state every output agrees exactly.
+  is a numpy replay of JAX's threefry keys (``utils/threefry``), made on
+  the host and moved to the device, and the drivers split keys in JAX's
+  order; so for the same seed a CPU run, a CUDA run and the JAX package
+  start from the same state, and codec 11 writes JAX's stream.
 
 State is dense int8 0/1, as in the JAX package.  Every product is float32
 over 0/1 operands with sums below 2**24, so it is an exact integer, with
@@ -39,6 +38,7 @@ import torch
 
 from ..ops import bitpack, packed_dist
 from ..ops.entropy import universal_codelength_t as _ucl
+from ..utils import threefry
 
 DISTANCES = ("packed", "mxu")
 
@@ -120,12 +120,17 @@ def update_coefficients(E, D, A, max_flips: int | None = None,
     return E, A, changed.sum()
 
 
-def update_dictionary_steepest(E, D, A):
+def update_dictionary_steepest(E, D, A, allreduce=None):
     """Majority-vote atom update with sequential residual fixup
     (bsvd.cpp:463-527): per atom k over its users U = {i : A[i, k]},
     weights_j = sum_U (E_i ^ D_k)_j, new D_k = weights > floor(|U| / 2);
     the users' rows of E take the change before the next atom.  Atoms are
-    serial.  Returns (E', D', atoms_changed) without touching the inputs."""
+    serial.  Returns (E', D', atoms_changed) without touching the inputs.
+
+    allreduce: where the rows of E and A are split over ranks
+    (``parallel/mesh.sharded_train_step``), a function that sums a float32
+    tensor over them in place; each atom's vote [usage, weights] is one
+    such sum, so every rank takes the same D_k."""
     E, D = E.clone(), D.clone()
     K = D.shape[0]
     changed = torch.zeros((), dtype=torch.int64, device=E.device)
@@ -134,6 +139,10 @@ def update_dictionary_steepest(E, D, A):
         users = A[:, k]
         usage = users.sum(dtype=_F32)
         weights = _f32(users)[None, :] @ _f32(E ^ Dk[None, :])
+        if allreduce is not None:
+            vote = torch.cat([usage.reshape(1, 1), weights], dim=1)
+            allreduce(vote)
+            usage, weights = vote[0, 0], vote[:, 1:]
         newDk = (weights[0] > torch.floor(usage / 2.0)).to(D.dtype)
         newDk = torch.where(usage > 0, newDk, Dk)
         delta = Dk ^ newDk
@@ -178,10 +187,8 @@ def update_dictionary_proximus(E, D, A, max_inner: int = 8):
     return E, D, A, torch.tensor(changed, device=E.device)
 
 
-# --- initializers: a draw (CPU generator) and a deterministic core ---------
-
-def _generator(seed: int) -> torch.Generator:
-    return torch.Generator(device="cpu").manual_seed(int(seed))
+# --- initializers: a draw (a threefry key) and a deterministic core --------
+# `key` is a ``utils/threefry`` key; each draw equals JAX's from that key.
 
 
 def _random_from_bits(X, D):
@@ -191,10 +198,10 @@ def _random_from_bits(X, D):
     return D, torch.zeros((N, D.shape[0]), dtype=torch.int8, device=X.device)
 
 
-def initialize_random(gen, X, K):
+def initialize_random(key, X, K):
     """Bernoulli(0.5) atoms (initialize_model_random, bsvd.cpp:385-397)."""
-    bits = torch.rand((K, X.shape[1]), generator=gen) < 0.5
-    return _random_from_bits(X, bits)
+    bits = threefry.bernoulli(key, 0.5, (K, X.shape[1]))
+    return _random_from_bits(X, torch.from_numpy(bits))
 
 
 def _centroids_from_assign(X, assign, K):
@@ -208,10 +215,10 @@ def _centroids_from_assign(X, assign, K):
     return D, onehot.to(torch.int8)
 
 
-def initialize_random_centroids(gen, X, K):
+def initialize_random_centroids(key, X, K):
     """Random cluster assignment + majority centroid (bsvd.cpp:128-166)."""
-    assign = torch.randint(0, K, (X.shape[0],), generator=gen)
-    return _centroids_from_assign(X, assign, K)
+    assign = threefry.randint(key, (X.shape[0],), 0, K)
+    return _centroids_from_assign(X, torch.from_numpy(assign), K)
 
 
 def _neighbor_from_idx(X, idx, K):
@@ -229,18 +236,18 @@ def _neighbor_from_idx(X, idx, K):
     return D, torch.zeros((N, K), dtype=torch.int8, device=X.device)
 
 
-def initialize_neighbor(gen, X, K):
+def initialize_neighbor(key, X, K):
     """Neighbor-centroid init (bsvd.cpp:227-267) from K random seed rows."""
-    idx = torch.randint(0, X.shape[0], (K,), generator=gen)
-    return _neighbor_from_idx(X, idx, K)
+    idx = threefry.randint(key, (K,), 0, X.shape[0])
+    return _neighbor_from_idx(X, torch.from_numpy(idx), K)
 
 
-def initialize_partition(gen, X, K):
+def initialize_partition(key, X, K):
     """Weight-ranked pivot-column partition (bsvd.cpp:173-219); no draw.
 
     Columns ranked by weight descending, ties by ascending index; atom k is
     the majority centroid of the samples hot in the k-th ranked column;
-    zero atoms pad K > M.  `gen` is unused (the INITIALIZERS signature)."""
+    zero atoms pad K > M.  `key` is unused (the INITIALIZERS signature)."""
     N, M = X.shape
     colw = X.to(torch.int64).sum(dim=0)
     keyv = (-colw) * M + torch.arange(M, device=X.device)
@@ -278,7 +285,7 @@ def _graph_grow_from_seeds(X, seed_idx, K):
     return D, torch.zeros((N, K), dtype=torch.int8, device=X.device)
 
 
-def initialize_graph_grow(gen, X, K, seed_idx=None):
+def initialize_graph_grow(key, X, K, seed_idx=None):
     """Support-graph growing init (bsvd.cpp:286-383) from K distinct random
     seed rows; `seed_idx` overrides the draw."""
     N = X.shape[0]
@@ -286,7 +293,7 @@ def initialize_graph_grow(gen, X, K, seed_idx=None):
         if K > N:
             raise ValueError(f"graph_grow needs K <= N distinct seed rows "
                              f"(K={K}, N={N})")
-        seed_idx = torch.randperm(N, generator=gen)[:K]
+        seed_idx = torch.from_numpy(threefry.choice(key, N, K))
     return _graph_grow_from_seeds(X, seed_idx, K)
 
 
@@ -335,7 +342,7 @@ def learn(X, K: int, init: str = "neighbor", dict_update: str = "steepest",
           distances: str = "packed"):
     """Initialize from `seed`, then ``learn_from``.  X: int8 [N, M] on the
     device to learn on.  Returns (E, D, A, iters)."""
-    D, A = INITIALIZERS[init](_generator(seed), X, K)
+    D, A = INITIALIZERS[init](threefry.PRNGKey(seed), X, K)
     return learn_from(X, D, A, dict_update=dict_update, max_iters=max_iters,
                       distances=distances)
 
@@ -349,7 +356,7 @@ def learn_alter(X, K: int, init: str = "neighbor", variant: int = 1,
     iteration; variant 2 runs each orientation to convergence before
     switching; variant 3 applies only the dictionary update in both
     orientations.  Returns (E, D, A, iters)."""
-    D, A = INITIALIZERS[init](_generator(seed), X, K)
+    D, A = INITIALIZERS[init](threefry.PRNGKey(seed), X, K)
     E = residual(X, D, A)
 
     def direct(E, D, A):
@@ -397,12 +404,11 @@ def learn_mdl_forward(X, K0: int = 4, init: str = "neighbor",
     """MDL forward selection (bsvd.cpp:1463-1546): grow the dictionary one
     atom at a time, the new atom initialized from the current residual and
     the whole model re-learned, keeping the best codelength under the
-    reference's stuck-counter and mean-deviation rule.  One generator,
-    advanced by each draw, stands in for JAX's per-step key split.
-    Returns (E, D, A, bestL)."""
-    gen = _generator(seed)
-    D, A = INITIALIZERS[init](gen, X, K0)
-    E, D, A, _ = learn_from(X, D, A, dict_update=dict_update)
+    reference's stuck-counter and mean-deviation rule.  The first model
+    draws from the seed's key, each new atom from the next split of it
+    (JAX's order).  Returns (E, D, A, bestL)."""
+    key = threefry.PRNGKey(seed)
+    E, D, A, _ = learn(X, K0, init=init, dict_update=dict_update, seed=seed)
     bestL = float(model_codelength(E, D, A))
     best = (E, D, A)
     currE, currD, currA = E, D, A
@@ -410,7 +416,8 @@ def learn_mdl_forward(X, K0: int = 4, init: str = "neighbor",
     K = K0
     while stuck < stuck_limit and K < max_k:
         dev = (sum_stuck // all_stuck) if all_stuck else 0
-        atomD, _ = INITIALIZERS[init](gen, currE, 1)
+        key, sub = threefry.split(key)
+        atomD, _ = INITIALIZERS[init](sub, currE, 1)
         currD = torch.cat([currD, atomD.to(currD.dtype)], dim=0)
         currA = torch.nn.functional.pad(currA, (0, 1))
         currE, currD, currA, _ = learn_from(X, currD, currA,
@@ -481,14 +488,16 @@ def learn_mdl_full(X, Kmax: int = 40, Kstep: int = 20, reps: int = 10,
                    init: str = "random_centroids",
                    dict_update: str = "steepest", seed: int = 34503498):
     """MDL full search (bsvd.cpp:1665-1717): K in steps of Kstep up to
-    Kmax, `reps` restarts each from the advancing generator, keeping the
-    lowest codelength (the first on a tie).  Returns (E, D, A, bestL)."""
-    gen = _generator(seed)
+    Kmax, `reps` restarts each, keeping the
+    lowest codelength (the first on a tie).  Each restart draws from the
+    next split of the seed's key.  Returns (E, D, A, bestL)."""
+    key = threefry.PRNGKey(seed)
     best = bestL = None
     K = Kstep
     while K <= Kmax:
         for _ in range(reps):
-            D0, A0 = INITIALIZERS[init](gen, X, K)
+            key, sub = threefry.split(key)
+            D0, A0 = INITIALIZERS[init](sub, X, K)
             E, D, A, _ = learn_from(X, D0, A0, dict_update=dict_update)
             L = float(model_codelength(E, D, A))
             if bestL is None or L < bestL:
@@ -497,6 +506,16 @@ def learn_mdl_full(X, Kmax: int = 40, Kstep: int = 20, reps: int = 10,
         K += Kstep
     E, D, A = best
     return E, D, A, bestL
+
+
+def learn_train_step(E, D, A, allreduce=None):
+    """One alternation step (JAX bsvd.py:642): a pursuit of at most 4 flips
+    per row, then the steepest dictionary update; the unit the sharded step
+    runs (``parallel/mesh.sharded_train_step``, which passes `allreduce`).
+    Returns (E, D, A)."""
+    E, A, _ = update_coefficients(E, D, A, max_flips=4)
+    E, D, _ = update_dictionary_steepest(E, D, A, allreduce=allreduce)
+    return E, D, A
 
 
 def model_codelength(E, D, A):

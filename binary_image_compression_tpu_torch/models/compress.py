@@ -100,21 +100,24 @@ def _med_tiles(P: torch.Tensor) -> torch.Tensor:
     return P ^ up ^ left ^ upleft
 
 
-def _selection_coords(sel, oy, W, nx):
-    """(b, ysel, xsel, i0, j0) gather coordinates, each [B, T]."""
+def _selection_coords(sel, oy, W, nx, row0=0):
+    """(b, ysel, xsel, i0, j0) gather coordinates in frame rows, each
+    [B, T]; the tile rows start at frame row row0."""
     B, T, _ = sel.shape
     i0, j0, _, _ = search.tile_origins(T // nx * W, nx * W, W, sel.device)
+    i0 = i0 + row0
     ysel = oy[None] + sel[..., 1].to(torch.int64)
     xsel = sel[..., 7].to(torch.int64)
     b = torch.arange(B, device=sel.device)[:, None]
     return b, ysel, xsel, i0[None], j0[None]
 
 
-def _finish_selection_fields(plane, sel, oy, *, W: int, nx: int):
+def _finish_selection_fields(plane, sel, oy, *, W: int, nx: int,
+                             row0: int = 0):
     """Field-domain finish (requires 32 % W == 0): the selected candidate and
     the tile are [B, T, W] gathers of row fields from K1's plane; inversion,
     MED, weights and the residual words are field arithmetic."""
-    b, ysel, xsel, i0, j0 = _selection_coords(sel, oy, W, nx)
+    b, ysel, xsel, i0, j0 = _selection_coords(sel, oy, W, nx, row0)
     ar = torch.arange(W, device=sel.device)
     P2f = bitpack.from_i32(plane[b[..., None], ysel[..., None] + ar,
                                  xsel[..., None]])
@@ -137,10 +140,10 @@ def _finish_selection_fields(plane, sel, oy, *, W: int, nx: int):
     return weights4, (r << shifts).sum(dim=-1)
 
 
-def _finish_selection(img, sel, oy, *, W: int, nx: int):
+def _finish_selection(img, sel, oy, *, W: int, nx: int, row0: int = 0):
     """Dense finish for 32 % W != 0: [B, T, W, W] pixel gathers; residuals
     packed with bitpack.pack."""
-    b, ysel, xsel, i0, j0 = _selection_coords(sel, oy, W, nx)
+    b, ysel, xsel, i0, j0 = _selection_coords(sel, oy, W, nx, row0)
     ar = torch.arange(W, device=sel.device)
 
     def grab(y, x):
@@ -181,15 +184,18 @@ def encode_analyze(img, *, W: int, R: int, T_thresh: int, rows: int,
     return finish_analysis(img, sel, oy, None, W=W, nx=nx)
 
 
-def finish_analysis(img, sel, oy, plane, *, W: int, nx: int) -> dict:
+def finish_analysis(img, sel, oy, plane, *, W: int, nx: int,
+                    row0: int = 0) -> dict:
     """The finish after the selection: the dict ``encode_analyze`` returns.
     The field finish reads K1's 32-bit plane; the banded route (plane
-    None) takes the dense finish."""
+    None) takes the dense finish.  img, plane and oy are in frame rows,
+    whose tile rows start at row0 (a shard's frame, parallel/tileshard)."""
     if plane is not None and 32 % W == 0:
         weights4, residual4 = _finish_selection_fields(plane, sel, oy, W=W,
-                                                       nx=nx)
+                                                       nx=nx, row0=row0)
     else:
-        weights4, residual4 = _finish_selection(img, sel, oy, W=W, nx=nx)
+        weights4, residual4 = _finish_selection(img, sel, oy, W=W, nx=nx,
+                                                row0=row0)
     n_cands = sel[..., 5]
     return dict(rank=sel[..., 4], n_cands=n_cands, inv=sel[..., 2] != 0,
                 has_cands=sel[..., 6] != 0, weights4=weights4,
@@ -389,23 +395,35 @@ _ANALYSIS_FIELDS = ("rank", "n_cands", "inv", "has_cands", "idx_len")
 
 
 def fetch_analysis(out: dict) -> dict:
-    """``encode_analyze``'s dict on the host in one copy: the per-tile
-    fields, the four weights and the residual words side by side in one
-    int64 [B, T, 9 + 4 * nw] block, split again into numpy arrays
-    (residual4 as uint32 [B, T, 4, nw])."""
+    """``encode_analyze``'s dict on the host in one copy
+    (``analysis_block``), split again into numpy arrays
+    (``split_analysis``)."""
+    return split_analysis(analysis_block(out).cpu().numpy())
+
+
+def analysis_block(out: dict) -> torch.Tensor:
+    """The per-tile fields, the four weights and the residual words of
+    ``encode_analyze``'s dict side by side in one int64 [B, T, 9 + 4 * nw]
+    tensor on the analysis's device."""
     B, T, _, nw = out["residual4"].shape
-    block = torch.cat([out[k].to(torch.int64)[..., None]
-                       for k in _ANALYSIS_FIELDS]
-                      + [out["weights4"].to(torch.int64),
-                         out["residual4"].to(torch.int64).reshape(B, T, -1)],
-                      dim=-1).cpu().numpy()
+    return torch.cat([out[k].to(torch.int64)[..., None]
+                      for k in _ANALYSIS_FIELDS]
+                     + [out["weights4"].to(torch.int64),
+                        out["residual4"].to(torch.int64).reshape(B, T, -1)],
+                     dim=-1)
+
+
+def split_analysis(block: np.ndarray) -> dict:
+    """An ``analysis_block`` on the host -> the dict of numpy arrays
+    (residual4 as uint32 [..., 4, nw])."""
     n = len(_ANALYSIS_FIELDS)
+    nw = (block.shape[-1] - n - 4) // 4
     got = {k: block[..., i] for i, k in enumerate(_ANALYSIS_FIELDS)}
     got["inv"] = got["inv"] != 0
     got["has_cands"] = got["has_cands"] != 0
     got["weights4"] = block[..., n:n + 4]
     got["residual4"] = block[..., n + 4:].astype(np.uint32).reshape(
-        B, T, 4, nw)
+        block.shape[:-1] + (4, nw))
     return got
 
 

@@ -110,13 +110,13 @@ def get_lib() -> ctypes.CDLL:
 def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bic_fused_search_select.restype = i
-    lib.bic_fused_search_select.argtypes = [p, p] + [i] * 15 + [p]
+    lib.bic_fused_search_select.argtypes = [p, p] + [i] * 16 + [p]
     lib.bic_field_plane.restype = i
     lib.bic_field_plane.argtypes = [p, p] + [i] * 5 + [p]
     lib.bic_decide_modes.restype = i
     lib.bic_decide_modes.argtypes = [p] * 6 + [i] * 7 + [p]
     lib.bic_select_windows.restype = i
-    lib.bic_select_windows.argtypes = [p] * 3 + [i] * 14 + [p]
+    lib.bic_select_windows.argtypes = [p] * 3 + [i] * 16 + [p]
     lib.bic_banded_plane.restype = i
     lib.bic_banded_plane.argtypes = [p, p] + [i] * 5 + [p]
     lib.bic_strict_analyze.restype = i

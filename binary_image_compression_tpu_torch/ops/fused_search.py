@@ -16,6 +16,13 @@ covers every shape, including those where the JAX package's 32-bit layout
 does not fit and it takes the masked-grid selection instead (W=32 with
 R >= 172, for example); both JAX paths give the same 8 outputs.
 
+The tiles may start below the top of the frame the plane is built from:
+``row0`` is the frame row of the first tile row and ``y_base`` the absolute
+image row of frame row 0.  Tile sharding (``parallel/tileshard.py``)
+searches a shard's frame (R halo rows from the shards above, then its own
+tile rows) with row0 = R and y_base = the shard's first row - R: bands and
+gathers stay in frame rows, masks and ranks use absolute rows.
+
 ``fused_search_select`` launches two CUDA kernels (``csrc/fused_search.cu``)
 for CUDA tensors, the field plane (counted as ``field_plane``) and the
 search (``fused_search_select``), and runs their plain versions,
@@ -84,10 +91,12 @@ def plane_height(gh: int, W: int, R: int) -> int:
     return gh + max(0, (R + 1) - (gh - W + 1))
 
 
-def band_origins(ny: int, W: int, R: int, He: int, device=None):
+def band_origins(ny: int, W: int, R: int, He: int, device=None,
+                 row0: int = 0):
     """oy [ny]: first band row per tile row, clip(i0 - R, 0, He - W - R)
+    with i0 = row0 + the tile row's offset, in frame rows
     (pallas_kernels.py:603)."""
-    i0 = torch.arange(ny, device=device, dtype=torch.int64) * W
+    i0 = row0 + torch.arange(ny, device=device, dtype=torch.int64) * W
     return torch.clamp(i0 - R, min=0, max=max(He - W - R, 0))
 
 
@@ -196,7 +205,7 @@ def _packed_decode(pr, i0, j0, oy, *, W, R, cols, lay):
 
 
 def fused_search_select_plain(E, ny, nx, *, W, R, T_thresh, cols, invert,
-                              y_base=0):
+                              y_base=0, row0=0):
     """Plain PyTorch K1: E int32 [B, He, We] -> int32 [B, ny*nx, 8].
 
     Chunked per tile row: each row's tiles score the 2R+1 window columns of
@@ -212,10 +221,10 @@ def fused_search_select_plain(E, ny, nx, *, W, R, T_thresh, cols, invert,
     j0 = torch.arange(nx, device=dev, dtype=torch.int64) * W
     xs = j0[:, None] - R + torch.arange(win, device=dev)         # [nx, win]
     rr = torch.arange(R + 1, device=dev, dtype=torch.int64)
-    oy_all = band_origins(ny, W, R, He, device=dev)
+    oy_all = band_origins(ny, W, R, He, device=dev, row0=row0)
     out = torch.empty((B, ny, nx, 8), dtype=torch.int64, device=dev)
     for ti in range(ny):
-        i0 = ti * W
+        i0 = row0 + ti * W
         oy = int(oy_all[ti])
         tf = Ew[:, i0:i0 + W, j0]                                # [B, W, nx]
         d = torch.zeros((B, R + 1, nx, win), dtype=torch.int64, device=dev)
@@ -238,14 +247,16 @@ def fused_search_select_plain(E, ny, nx, *, W, R, T_thresh, cols, invert,
 
 def fused_search_select(img_bits, ny: int, nx: int, *, W: int, R: int,
                         T_thresh: int, cols: int, invert: bool,
-                        y_base: int = 0):
+                        y_base: int = 0, row0: int = 0):
     """K1 over a batch of pages.
 
-    img_bits: 0/1 [B, ny*W, nx*W] padded tile grids.  y_base is the absolute
-    image row of frame row 0 (masks and ranks use absolute rows; gathers stay
-    frame-relative).  Returns (sel int32 [B, T, 8] with columns OUT_FIELDS,
-    oy int64 [T] band origins, E int32 [B, He, We] field plane as uint32 bit
-    patterns).  Shapes outside ``fused_supported`` raise NotImplementedError.
+    img_bits: 0/1 [B, gh, nx*W] frames whose ny tile rows start at frame row
+    row0 (gh = row0 + ny*W; a padded tile grid has row0 = 0).  y_base is the
+    absolute image row of frame row 0 (masks and ranks use absolute rows;
+    gathers stay frame-relative).  Returns (sel int32 [B, T, 8] with columns
+    OUT_FIELDS, oy int64 [T] band origins in frame rows, E int32 [B, He, We]
+    field plane as uint32 bit patterns).  Shapes outside ``fused_supported``
+    raise NotImplementedError.
     """
     B, gh, gw = img_bits.shape
     if not fused_supported(ny, nx, W, R) or packed_sel_layout(W, R) is None:
@@ -253,9 +264,12 @@ def fused_search_select(img_bits, ny: int, nx: int, *, W: int, R: int,
             f"W={W}, R={R}, {ny}x{nx} tiles: outside the fused search; "
             "compress.encode_analyze takes the banded route (K4, "
             "select_windows) for this shape")
+    if row0 < 0 or row0 + ny * W > gh:
+        raise ValueError(f"{ny} tile rows from frame row {row0} do not fit "
+                         f"a frame of {gh} rows")
     He = plane_height(gh, W, R)
     kw = dict(W=W, R=R, T_thresh=T_thresh, cols=cols, invert=invert,
-              y_base=y_base)
+              y_base=y_base, row0=row0)
     if img_bits.is_cuda:
         E = _launch_plane(img_bits, W, He)
         sel = _launch(E, ny, nx, **kw)
@@ -264,7 +278,8 @@ def fused_search_select(img_bits, ny: int, nx: int, *, W: int, R: int,
         sel = fused_search_select_plain(E, ny, nx, **kw)
     else:
         raise RuntimeError(f"K1 has no kernel for device {img_bits.device}")
-    oy = band_origins(ny, W, R, He, device=E.device).repeat_interleave(nx)
+    oy = band_origins(ny, W, R, He, device=E.device,
+                      row0=row0).repeat_interleave(nx)
     return sel, oy, E
 
 
@@ -286,7 +301,7 @@ def _launch_plane(img_bits, W: int, He: int):
     return E
 
 
-def _launch(E, ny, nx, *, W, R, T_thresh, cols, invert, y_base):
+def _launch(E, ny, nx, *, W, R, T_thresh, cols, invert, y_base, row0=0):
     """Launch the search kernel of csrc/fused_search.cu: one block per
     (tile, page)."""
     if E.dtype != torch.int32 or E.dim() != 3 or not E.is_contiguous():
@@ -298,7 +313,7 @@ def _launch(E, ny, nx, *, W, R, T_thresh, cols, invert, y_base):
     lib = _cuda.get_lib()
     _cuda.check(lib.bic_fused_search_select(
         ctypes.c_void_p(E.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        B, He, We, nx, T, W, R, T_thresh, cols, int(invert), y_base,
+        B, He, We, nx, T, W, R, T_thresh, cols, int(invert), y_base, row0,
         lay["span"], lay["off1"], lay["kb"], lay["db"],
         _cuda.stream(E.device)), "bic_fused_search_select")
     _cuda.launches["fused_search_select"] += 1

@@ -1,17 +1,21 @@
 """Causal GF(2) prediction (MED) on packed words.
 
-Counterpart of ``med_forward`` in ``binary_image_compression_tpu/ops/
-predict.py`` (:56, with ``_shift_right_1bit`` and ``_shift_down_1row``):
-the residual r(i,j) = P(i,j) ^ P(i-1,j) ^ P(i,j-1) ^ P(i-1,j-1), zeros
-outside the image, r(0,0) = P(0,0) (DEVIATIONS.md 1), is three shifted XORs
-of the packed plane.  Words are int32 bit patterns (MSB-first, bit j of a
-row at bit 31 - j % 32 of word j // 32): torch on the CPU has no shifts on
-uint32, so a logical right shift is an arithmetic one masked to 31 bits.
+Counterpart of ``med_forward`` (:56, with ``_shift_right_1bit`` and
+``_shift_down_1row``), ``_prefix_xor_bits`` (:70), ``med_inverse`` (:88)
+and the dense-bool oracles ``np_med_forward`` / ``np_med_inverse`` (:99,
+:111) in ``binary_image_compression_tpu/ops/predict.py``: the residual
+r(i,j) = P(i,j) ^ P(i-1,j) ^ P(i,j-1) ^ P(i-1,j-1), zeros outside the
+image, r(0,0) = P(0,0) (DEVIATIONS.md 1), is three shifted XORs of the
+packed plane, and its inverse a prefix XOR along each row and then down
+each column.  Words are int32 bit patterns (MSB-first, bit j of a row at
+bit 31 - j % 32 of word j // 32): torch on the CPU has no shifts on uint32,
+so a logical right shift is an arithmetic one masked to the bits it keeps.
 JAX computes this in XLA, outside Pallas, so torch ops are the port.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .bitpack import LANE, nwords
@@ -48,3 +52,51 @@ def med_forward(packed: torch.Tensor, cols: int) -> torch.Tensor:
     upleft = _shift_right_1bit(up)
     r = packed ^ up ^ left ^ upleft
     return r & trail_mask(cols, packed.device)
+
+
+def _prefix_xor_bits(x: torch.Tensor) -> torch.Tensor:
+    """Within-row prefix XOR across the bits of packed int32 words: a
+    Kogge-Stone scan inside each word (bit k of the MSB-first row takes bits
+    0..k), then each word XORed with the parity of the words before it."""
+    for s in (1, 2, 4, 8, 16):
+        x = x ^ ((x >> s) & ((1 << (LANE - s)) - 1))
+    parity = x & 1
+    carry = (torch.cumsum(parity, dim=-1) - parity) & 1
+    return x ^ -carry.to(x.dtype)            # -1: all 32 bits flipped
+
+
+def _prefix_xor_rows(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix XOR down the rows (axis -2), a log-step scan (JAX's
+    ``associative_scan``; torch has no cumulative XOR)."""
+    shift = 1
+    while shift < x.shape[-2]:
+        x = torch.cat([x[..., :shift, :],
+                       x[..., shift:, :] ^ x[..., :-shift, :]], dim=-2)
+        shift *= 2
+    return x
+
+
+def med_inverse(residual: torch.Tensor, cols: int) -> torch.Tensor:
+    """Exact inverse of ``med_forward``: the prefix XOR along each row, then
+    down each column."""
+    x = _prefix_xor_rows(_prefix_xor_bits(residual))
+    return x & trail_mask(cols, x.device)
+
+
+def np_med_forward(p: np.ndarray) -> np.ndarray:
+    """Dense-bool oracle of the reference MED loop (pred.cpp:3-15)."""
+    p = np.asarray(p, dtype=bool)
+    r = np.zeros_like(p)
+    r[..., 0, 1:] = p[..., 0, 1:] ^ p[..., 0, :-1]
+    r[..., 1:, 0] = p[..., 1:, 0] ^ p[..., :-1, 0]
+    r[..., 1:, 1:] = (p[..., 1:, 1:] ^ p[..., :-1, 1:]
+                      ^ p[..., 1:, :-1] ^ p[..., :-1, :-1])
+    r[..., 0, 0] = p[..., 0, 0]
+    return r
+
+
+def np_med_inverse(r: np.ndarray) -> np.ndarray:
+    """Dense-bool inverse: prefix XOR along the rows, then the columns."""
+    r = np.asarray(r, dtype=bool)
+    x = np.bitwise_xor.accumulate(r, axis=-1)
+    return np.bitwise_xor.accumulate(x, axis=-2)

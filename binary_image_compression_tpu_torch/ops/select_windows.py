@@ -21,6 +21,11 @@ Output columns are K1's (``fused_search.OUT_FIELDS``): column 1 is dy
 relative to the banded origin oy (``search.banded_origins``) and column 7
 the absolute x, where the JAX kernel returns x relative to ox.
 
+As in K1, ``row0`` is the frame row of the first tile row and ``y_base``
+the absolute row of frame row 0 (``parallel/tileshard.py`` searches a
+shard's frame with row0 = R): the windows, the top clamp and the keys use
+absolute rows, the loads and oy frame rows.
+
 ``select_windows`` launches two CUDA kernels (``csrc/select_windows.cu``)
 for CUDA tensors, the 64-bit field plane (counted as ``banded_plane``) and
 the search (``select_windows``), and runs their plain versions,
@@ -54,9 +59,11 @@ def _tile_coords(T: int, nx: int, W: int, device):
 
 
 def select_maps(d, oy, ox, nx: int, *, W: int, R: int, T_thresh: int,
-                cols: int, invert: bool):
+                cols: int, invert: bool, y_base: int = 0, row0: int = 0):
     """The selection over distance maps: d int32 [B, T, h, w], cell (r, c)
     of tile t being candidate (oy[t] + r, ox[t] + c) -> int32 [B, T, 8].
+    oy is in frame rows; tile t's frame row is row0 + its grid offset, and
+    frame row f is absolute row f + y_base.
 
     One tile row at a time, so the key and priority tensors stay at
     B * nx * h * w elements."""
@@ -64,6 +71,8 @@ def select_maps(d, oy, ox, nx: int, *, W: int, R: int, T_thresh: int,
     B, T, h, w = d.shape
     dev = d.device
     i0, j0 = _tile_coords(T, nx, W, dev)
+    i0 = i0 + row0 + y_base                       # absolute rows from here
+    oy = oy + y_base
     rr = torch.arange(h, device=dev)
     cc = torch.arange(w, device=dev)
     out = torch.empty((B, T, 8), dtype=torch.int32, device=dev)
@@ -85,26 +94,35 @@ def select_maps(d, oy, ox, nx: int, *, W: int, R: int, T_thresh: int,
 
 
 def select_windows_plain(E, ny: int, nx: int, *, W: int, R: int,
-                         T_thresh: int, cols: int, invert: bool):
+                         T_thresh: int, cols: int, invert: bool,
+                         y_base: int = 0, row0: int = 0):
     """Plain PyTorch K4: the int64 field plane [B, He, nx*W] -> int32
     [B, ny*nx, 8]: the banded distance maps, then ``select_maps``."""
-    d, oy, ox = search.window_distance_maps_banded(E, ny, nx, W, R)
+    d, oy, ox = search.window_distance_maps_banded(E, ny, nx, W, R,
+                                                   row0=row0)
     return select_maps(d, oy, ox, nx, W=W, R=R, T_thresh=T_thresh,
-                       cols=cols, invert=invert)
+                       cols=cols, invert=invert, y_base=y_base, row0=row0)
 
 
 def select_windows(img_bits, ny: int, nx: int, *, W: int, R: int,
-                   T_thresh: int, cols: int, invert: bool):
+                   T_thresh: int, cols: int, invert: bool, y_base: int = 0,
+                   row0: int = 0):
     """K4 over a batch of pages.
 
-    img_bits: 0/1 [B, ny*W, nx*W] padded tile grids.  Returns (sel int32
-    [B, T, 8] with columns ``fused_search.OUT_FIELDS``, oy int64 [T] banded
-    origins, E int64 [B, He, nx*W] the field plane as uint64 bit patterns,
-    He = ``fused_search.plane_height``)."""
+    img_bits: 0/1 [B, gh, nx*W] frames whose ny tile rows start at frame row
+    row0 (gh = row0 + ny*W; a padded tile grid has row0 = 0); y_base is the
+    absolute row of frame row 0.  Returns (sel int32 [B, T, 8] with columns
+    ``fused_search.OUT_FIELDS``, oy int64 [T] banded origins in frame rows,
+    E int64 [B, He, nx*W] the field plane as uint64 bit patterns, He =
+    ``fused_search.plane_height``)."""
     _layout(W, R)
     B, gh, gw = img_bits.shape
+    if row0 < 0 or row0 + ny * W > gh:
+        raise ValueError(f"{ny} tile rows from frame row {row0} do not fit "
+                         f"a frame of {gh} rows")
     He = plane_height(gh, W, R)
-    kw = dict(W=W, R=R, T_thresh=T_thresh, cols=cols, invert=invert)
+    kw = dict(W=W, R=R, T_thresh=T_thresh, cols=cols, invert=invert,
+              y_base=y_base, row0=row0)
     if img_bits.is_cuda:
         E = _launch_plane(img_bits, W, He)
         sel = _launch(E, ny, nx, **kw)
@@ -113,7 +131,7 @@ def select_windows(img_bits, ny: int, nx: int, *, W: int, R: int,
         sel = select_windows_plain(E, ny, nx, **kw)
     else:
         raise RuntimeError(f"K4 has no kernel for device {img_bits.device}")
-    oy, _ = search.banded_origins(gh, gw, W, R, E.device)
+    oy, _ = search.banded_origins(gh, gw, W, R, E.device, row0=row0)
     return sel, oy, E
 
 
@@ -135,14 +153,14 @@ def _launch_plane(img_bits, W: int, He: int):
     return E
 
 
-def _launch(E, ny, nx, *, W, R, T_thresh, cols, invert):
+def _launch(E, ny, nx, *, W, R, T_thresh, cols, invert, y_base=0, row0=0):
     """Launch the search of csrc/select_windows.cu: a few blocks per (tile,
     page) merged by atomicMin, then the decode."""
     if E.dtype != torch.int64 or E.dim() != 3 or not E.is_contiguous():
         raise ValueError("K4 takes a contiguous int64 [B, He, We] plane")
     lay = _layout(W, R)
     B, He, We = E.shape
-    if He < W + R or We < nx * W:
+    if He < W + R or We < nx * W or row0 + ny * W > He:
         raise ValueError(f"K4: a plane of {He} x {We} does not hold the "
                          f"bands of {ny} x {nx} tiles (W={W}, R={R})")
     T = ny * nx
@@ -151,7 +169,8 @@ def _launch(E, ny, nx, *, W, R, T_thresh, cols, invert):
     _cuda.check(_cuda.get_lib().bic_select_windows(
         ctypes.c_void_p(E.data_ptr()), ctypes.c_void_p(best.data_ptr()),
         ctypes.c_void_p(out.data_ptr()), B, He, We, nx, T, W, R, T_thresh,
-        cols, int(invert), lay["span"], lay["off1"], lay["kb"], lay["db"],
+        cols, int(invert), y_base, row0, lay["span"], lay["off1"],
+        lay["kb"], lay["db"],
         _cuda.stream(E.device)), "bic_select_windows")
     _cuda.launches["select_windows"] += 1
     return out

@@ -41,7 +41,23 @@ stack on "device-assembly" and none elsewhere, one K7 launch per stack on
 through K4, with the complement trick off and no K2 launch: 16,986 /
 17,094 and 22,367 / 22,375 B, with the encoder's stage profile), then the
 host codecs 1, 2, 3, 6 and 12 at their pinned bytes and the CLI's
-``compare`` and ``info`` as subprocesses.  K1 and K4 are also held
+``compare`` and ``info`` as subprocesses, and multi-device
+(``parallel/``): ``encode_tile_sharded`` of a 3300x2550 letter page at
+W = 16 (K1) and W = 64 (K4, 720,310 B), of doc512's top 128 rows (R over
+two shard blocks) and of a ragged page (a pad tile row), each == the
+single-device ``compress.encode`` and the host encoder, at a world of 1 on
+NCCL in this process (launches counted; then the CLI's ``--shard tiles``
+as a subprocess) and at a world of 2 under gloo (two processes of this
+script on the one card, ``--parallel-rank``, each with its own timeout),
+where the ranks also hold the row-sharded MED of the letter page, the
+sharded BSVD step at codec 11's shape (K = 64 and 512), the page-sharded
+64-page corpus with its merged offsets and the offset scan against one
+device; the letter page's sharded encode is timed by stage (halo, shard
+analysis, gather, native assembly) at both worlds beside
+``compress.encode``.  K1 and K4 are also held against their plain
+versions on shard frames (tiles at frame row R, negative y_base: doc512 at
+W = 16, R = 128 and R = 100, and W = 64 / 40 for K4, and a ragged page).
+Codec 11 is held at JAX's 24,209 B.  K1 and K4 are also held
 against their plain versions with the complement trick off on doc512
 (W = 16 and W = 64), the shapes of codecs 4 and 7.  Every
 codec-8 stream is checked byte for byte against the native host encoder,
@@ -128,6 +144,51 @@ def grid_of(pages: np.ndarray, W: int, dev) -> torch.Tensor:
     return torch.from_numpy(g).to(dev)
 
 
+def shard_frame(page: np.ndarray, W: int, base: int, blk: int,
+                R: int) -> np.ndarray:
+    """A tile shard's frame of one page, as ``parallel/tileshard`` searches
+    it: the R rows above rows base..base+blk of the padded tile grid (zeros
+    above the page), then those rows; [1, R + blk, nx*W]."""
+    rows, cols = page.shape
+    ny, nx = -(-rows // W), -(-cols // W)
+    grid = np.zeros((max(ny * W, base + blk), nx * W), dtype=bool)
+    grid[:rows, :cols] = page
+    frame = np.zeros((1, R + blk, nx * W), dtype=bool)
+    lo = max(base - R, 0)
+    frame[0, R - (base - lo):] = grid[lo:base + blk]
+    return frame
+
+
+def check_shard_frames(name, cases, launch_plane, launch, plain_plane,
+                       plain, dev) -> tuple[int, int]:
+    """A kernel pair on shard frames (row0 = R, y_base = base - R, so
+    negative for a top shard) == its plain versions, field for field."""
+    worst = worst_plane = 0
+    for what, page, W, R, base, blk in cases:
+        frame = shard_frame(page, W, base, blk, R)
+        img = torch.from_numpy(frame).to(dev)
+        ny, nx = blk // W, frame.shape[2] // W
+        He = R + blk               # a frame is never shorter than its bands
+        E = launch_plane(img, W, He)
+        plain_E = plain_plane(img, W, He, nx * W)
+        kw = dict(W=W, R=R, T_thresh=2, cols=page.shape[1], invert=True,
+                  y_base=base - R, row0=R)
+        got = launch(E, ny, nx, **kw)
+        want = plain(plain_E, ny, nx, **kw)
+        torch.cuda.synchronize()
+        err_p = int((E.to(torch.int64) - plain_E.to(torch.int64)).abs().max())
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        worst, worst_plane = max(worst, err), max(worst_plane, err_p)
+        log(f"{name} shard frame, {what}: W={W} R={R} rows {base}.."
+            f"{base + blk} (row0={R}, y_base={base - R}) T={ny * nx} plane "
+            f"max_abs_err={err_p}, search max_abs_err={err} "
+            f"found={int(got[..., 3].sum())}")
+        if err != 0 or err_p != 0:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"on the shard frame {what}")
+    return worst, worst_plane
+
+
 def check_k1(fs, pnm, dev) -> tuple[int, int]:
     """K1's two kernels == their plain versions on the same CUDA tensors:
     the plane kernel == ``_field_plane``, the search == its plain version
@@ -175,7 +236,16 @@ def check_k1(fs, pnm, dev) -> tuple[int, int]:
         if err != 0 or err_p != 0:
             raise AssertionError(f"K1 disagrees with its plain version on "
                                  f"{name}")
-    return worst, worst_plane
+    # shard frames: what, page, W, R, first row, rows of the shard
+    shards = [("doc512 top shard", doc, 16, 128, 0, 256),
+              ("doc512 lower shard", doc, 16, 128, 256, 256),
+              ("doc512, R not a multiple of W", doc, 16, 100, 64, 128),
+              ("ragged75x101 top shard", rag, 8, 24, 0, 40)]
+    e, ep = check_shard_frames(
+        "K1", shards, fs._launch_plane, fs._launch,
+        lambda img, W, He, We: fs.to_i32(fs._field_plane(img, W, He, We)),
+        fs.fused_search_select_plain, dev)
+    return max(worst, e), max(worst_plane, ep)
 
 
 def adversarial_k2(M: int, T: int, B: int = 1):
@@ -353,7 +423,13 @@ def check_k4(sw, fs, pnm, dev) -> tuple[int, int]:
         if err != 0 or err_p != 0:
             raise AssertionError(f"K4 disagrees with its plain version on "
                                  f"{name} at W={W}")
-    return worst, worst_plane
+    shards = [("doc512 top shard", doc, 64, 128, 0, 256),
+              ("doc512 lower shard", doc, 64, 128, 256, 256),
+              ("doc512", doc, 40, 64, 40, 120),
+              ("ragged75x101 top shard", rag, 33, 40, 0, 66)]
+    e, ep = check_shard_frames("K4", shards, sw._launch_plane, sw._launch,
+                               fs._field_plane, sw.select_windows_plain, dev)
+    return max(worst, e), max(worst_plane, ep)
 
 
 def main_path(compress, archive, codec, native, pnm):
@@ -573,6 +649,292 @@ def host_codecs_phase(codec, pnm):
             f"included)")
 
 
+# --- multi-device: parallel/ on torch.distributed -------------------------
+
+LETTER_W64_BYTES = 720310        # codec 8 causal, W=64, R=128
+PARALLEL_TIMEOUT = 600           # seconds, each rank of the gloo world
+PARALLEL_REPS = 3
+
+
+def tile_cases(pnm):
+    """(what, page, W, R) of the tile-sharded checks: the letter page
+    through K1 and K4, the top 128 rows of doc512 (at 2 ranks R=128 spans
+    two 64-row blocks), and ragged75x101 at W=16 (5 tile rows: a pad row
+    at 2 ranks)."""
+    doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
+    rag = pnm.read_pbm(os.path.join(FIXTURES, "ragged75x101.pbm"))
+    letter = letter_page(doc)
+    return [("letter 3300x2550", letter, 16, 128),
+            ("letter 3300x2550", letter, 64, 128),
+            ("doc512 rows 0..127, R over two blocks", doc[:128], 16, 128),
+            ("ragged75x101, a pad tile row", rag, 16, 32)]
+
+
+def tile_sharded_checks(m, tileshard, compress, codec, native, pnm, dev,
+                        want: dict | None):
+    """encode_tile_sharded of every tile case; on the line's first rank
+    each stream == `want` (compress.encode's, computed before) == the
+    native host stream, round-trips, and the letter page at W=64 is
+    LETTER_W64_BYTES.  Returns {(what, W): bytes} there."""
+    got = {}
+    for what, img, W, R in tile_cases(pnm):
+        p = codec.CodecParams(codec=8, W=W, R=R, strict=False)
+        blob = tileshard.encode_tile_sharded(m, img, p, device=dev)
+        if blob is None:
+            continue
+        if want is not None and blob != want[(what, W)]:
+            raise AssertionError(f"tile-sharded {what} W={W} != "
+                                 f"compress.encode")
+        if blob != host_stream(codec, native, img, p):
+            raise AssertionError(f"tile-sharded {what} W={W} != native host "
+                                 f"stream")
+        if not np.array_equal(codec.decode(blob), img):
+            raise AssertionError(f"tile-sharded {what} W={W} does not "
+                                 f"round-trip")
+        if what.startswith("letter") and W == 64 and \
+                len(blob) != LETTER_W64_BYTES:
+            raise AssertionError(f"letter W=64 is {len(blob)} B, not "
+                                 f"{LETTER_W64_BYTES}")
+        got[(what, W)] = blob
+        log(f"  tile-sharded {what} W={W} R={R} over {m.shape['data']} "
+            f"rank(s) -> {len(blob)} B, == compress.encode and the host "
+            f"encoder, round-trips")
+    return got
+
+
+def single_device_streams(compress, codec, pnm) -> dict:
+    return {(what, W): compress.encode(img, codec.CodecParams(
+        codec=8, W=W, R=R, strict=False), device="cuda")
+        for what, img, W, R in tile_cases(pnm)}
+
+
+def profiled(fn, reps: int):
+    """Host wall ms of reps warm calls of fn(profile), and the profile."""
+    from binary_image_compression_tpu_torch.utils.profiling import \
+        PipelineProfile
+    fn(None)
+    prof = PipelineProfile()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn(prof)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls, prof
+
+
+def log_times(label: str, walls, prof, reps: int, gpu: str) -> None:
+    per = {k: v.seconds * 1e3 / reps for k, v in prof.stages.items()}
+    log(f"{label} [{gpu}]: wall per call "
+        f"{', '.join(f'{w:.3f}' for w in walls)} ms (median "
+        f"{float(np.median(walls)):.3f}); per call "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in per.items()))
+
+
+def parallel_world1(compress, codec, native, pnm, _cuda, dev, gpu) -> dict:
+    """A world of 1 on NCCL in this process: the tile-sharded encodes,
+    their launches counted (the single-device references are made before
+    the counts are reset), then the CLI's --shard tiles as a subprocess and
+    the letter page's times beside compress.encode.  Returns the counts."""
+    import torch.distributed as dist
+
+    from binary_image_compression_tpu_torch.parallel import mesh as pm
+    from binary_image_compression_tpu_torch.parallel import (multihost,
+                                                             tileshard)
+    want = single_device_streams(compress, codec, pnm)
+    multihost.init_single_process(backend="nccl", device=dev)
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError("world 1 is not one NCCL rank")
+        log(f"parallel world 1: backend {dist.get_backend()}, compute on "
+            f"{dev}")
+        m = pm.make_mesh(1, data=1, model=1)
+        counts = drive("parallel world 1", lambda: tile_sharded_checks(
+            m, tileshard, compress, codec, native, pnm, dev, want), _cuda,
+            ("field_plane", "fused_search_select", "banded_plane",
+             "select_windows"))
+        if counts.get("decide_modes"):
+            raise AssertionError("the tile-sharded path launched K2")
+        doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
+        letter = letter_page(doc)
+        for W in (16, 64):
+            p = codec.CodecParams(codec=8, W=W, R=128, strict=False)
+            walls, prof = profiled(lambda pr: tileshard.encode_tile_sharded(
+                m, letter, p, device=dev, profile=pr), PARALLEL_REPS)
+            log_times(f"letter W={W} encode_tile_sharded, world 1 (NCCL)",
+                      walls, prof, PARALLEL_REPS, gpu)
+            walls, prof = profiled(lambda pr: compress.encode(
+                letter, p, device="cuda", profile=pr), PARALLEL_REPS)
+            log_times(f"letter W={W} compress.encode, one device", walls,
+                      prof, PARALLEL_REPS, gpu)
+    finally:
+        dist.destroy_process_group()
+
+    src = os.path.join(REPO, "build", "chip_smoke_letter.pbm")
+    out = os.path.join(REPO, "build", "chip_smoke_letter.bic")
+    pnm.write_pbm(letter, src)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "binary_image_compression_tpu_torch", "compress",
+                        src, out, "-W", "64", "--shard", "tiles"],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"compress --shard tiles exited "
+                             f"{r.returncode}:\n{r.stderr[-3000:]}")
+    with open(out, "rb") as f:
+        if f.read() != want[("letter 3300x2550", 64)]:
+            raise AssertionError("compress --shard tiles != compress.encode")
+    log(f"CLI compress --shard tiles -W 64 on the letter page (a world of "
+        f"1, NCCL): {r.stdout.strip()}; == compress.encode "
+        f"({time.perf_counter() - t0:.1f} s wall)")
+    return counts
+
+
+def parallel_world2(gpu: str) -> None:
+    """A world of 2 under gloo: two processes of this script on the one
+    card (NCCL takes one rank per GPU), each with its own timeout; any
+    rank's failure fails the run.  The kernels are built before."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    logdir = os.path.join(REPO, "build", "chip_smoke_parallel")
+    os.makedirs(logdir, exist_ok=True)
+    logs = [open(os.path.join(logdir, f"rank{r}.log"), "w+")
+            for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--parallel-rank", str(r), str(port)],
+                              cwd=REPO, stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, PARALLEL_TIMEOUT
+                                   - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, f in enumerate(logs):
+        f.seek(0)
+        for line in f.read().splitlines():
+            log(f"  [rank {r}] {line}")
+        f.close()
+    rcs = [p.returncode for p in procs]
+    if any(rc != 0 for rc in rcs):
+        raise AssertionError(f"parallel world 2: ranks exited {rcs}")
+    log(f"parallel world 2 (gloo, both ranks on {gpu}): every check passed, "
+        f"ranks exited {rcs} ({time.perf_counter() - t0:.1f} s wall)")
+
+
+def parallel_rank(rank: int, port: int, dev="cuda:0") -> int:
+    """One rank of parallel_world2's gloo world, compute on `dev`."""
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from binary_image_compression_tpu_torch import native
+    from binary_image_compression_tpu_torch.models import (archive, bsvd,
+                                                           codec, compress)
+    from binary_image_compression_tpu_torch.ops import _cuda, predict
+    from binary_image_compression_tpu_torch.ops.bitpack import np_pack
+    from binary_image_compression_tpu_torch.parallel import (bitmerge, halo,
+                                                             multihost,
+                                                             tileshard)
+    from binary_image_compression_tpu_torch.parallel import mesh as pm
+    from binary_image_compression_tpu_torch.utils import pnm, threefry
+
+    dev = torch.device(dev)
+    world = 2
+    multihost.init_distributed(f"127.0.0.1:{port}", world, rank,
+                               backend="gloo", device=dev)
+    log(f"backend {dist.get_backend()}, world {dist.get_world_size()}, "
+        f"rank {rank}, compute on {dev}")
+    m = pm.make_mesh(world, data=world, model=1)
+    first = rank == 0
+    want = single_device_streams(compress, codec, pnm) if first else None
+    _cuda.launches.clear()
+    tile_sharded_checks(m, tileshard, compress, codec, native, pnm, dev, want)
+    counts = dict(_cuda.launches)
+    log(f"tile-sharded launches on this rank: {counts}")
+    for k in ("field_plane", "fused_search_select", "banded_plane",
+              "select_windows"):
+        if not counts.get(k):
+            raise AssertionError(f"this rank never launched {k}")
+
+    doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
+    letter = letter_page(doc)
+    cols = letter.shape[1]
+    packed = torch.from_numpy(np_pack(letter).view(np.int32)).to(dev)
+    r = halo.med_forward_sharded(m, packed, cols)
+    if not torch.equal(r, predict.med_forward(packed, cols)):
+        raise AssertionError("med_forward_sharded != med_forward")
+    back = halo.med_inverse_sharded(m, r, cols)
+    if not torch.equal(back, predict.med_inverse(r, cols)) or \
+            not torch.equal(back, packed):
+        raise AssertionError("med_inverse_sharded != med_inverse")
+    log("halo: the letter page's MED forward and inverse over 2 ranks == "
+        "predict.med_forward / med_inverse, and the inverse gives the page")
+
+    X = bsvd.patchify_to_rows(torch.from_numpy(doc).to(dev), 16)
+    step = pm.sharded_train_step(m)
+    for K in (64, 512):
+        D, A = bsvd.initialize_random_centroids(threefry.PRNGKey(34503498),
+                                                X, K)
+        E = bsvd.residual(X, D, A)
+        one = bsvd.learn_train_step(E, D, A)
+        _, Es, Ds, As = pm.shard_bsvd_state(m, X, E, D, A)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Es, Ds, As = step(Es, Ds, As)
+        torch.cuda.synchronize()
+        t = (time.perf_counter() - t0) * 1e3
+        got = (m.all_gather_cat(Es, "data"), Ds, m.all_gather_cat(As, "data"))
+        if not all(torch.equal(g, w) for g, w in zip(got, one)):
+            raise AssertionError(f"sharded_train_step K={K} != "
+                                 f"learn_train_step")
+        log(f"sharded_train_step doc512 N=1024 M=256 K={K} (data=2): == "
+            f"one device's learn_train_step ({t:.1f} ms wall)")
+
+    rng = np.random.RandomState(0)
+    corpus = [np.roll(doc, (int(rng.randint(512)), int(rng.randint(512))),
+                      axis=(0, 1)) for _ in range(CORPUS_PAGES)]
+    p = codec.CodecParams(codec=8, W=16, R=128, strict=False)
+    blobs = multihost.encode_corpus_sharded(corpus, params=p, batch_size=32,
+                                            device=dev)
+    offs = multihost.corpus_offsets(blobs, len(corpus))
+    every = [None] * world
+    dist.all_gather_object(every, blobs)
+    if first:
+        single = archive.encode_pages(corpus, p, batch_size=32, device=dev)
+        if [b for part in every for b in part] != single:
+            raise AssertionError("encode_corpus_sharded != encode_pages")
+        if not np.array_equal(offs, multihost.merge_host_offsets(
+                [len(b) for b in single])):
+            raise AssertionError("corpus offsets != merge_host_offsets")
+        log(f"encode_corpus_sharded: {len(corpus)} pages over 2 ranks, every "
+            f"blob == archive.encode_pages, offsets merged (last "
+            f"{int(offs[-1])})")
+    nbits = 1000 + 7 * rank
+    off = bitmerge.exclusive_offsets(m, "data", nbits)
+    if off != (1000 if rank else 0):
+        raise AssertionError(f"exclusive_offsets gave {off}")
+
+    gpu = card()
+    for W in (16, 64):
+        p = codec.CodecParams(codec=8, W=W, R=128, strict=False)
+        walls, prof = profiled(lambda pr: tileshard.encode_tile_sharded(
+            m, letter, p, device=dev, profile=pr), PARALLEL_REPS)
+        if first:
+            log_times(f"letter W={W} encode_tile_sharded, world 2 (gloo, "
+                      f"two processes on one card)", walls, prof,
+                      PARALLEL_REPS, gpu)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def no_maps_on_card(search, fn):
     """Run fn() with a spy on ``search.window_distance_maps_banded`` (K4's
     plain maps); fail if it was called on a CUDA tensor."""
@@ -740,6 +1102,9 @@ def pursuit_spy(bsvd, _cuda, fn):
         raise AssertionError("no packed pursuit ran on the card")
 
 
+CODEC11_BYTES = 24209   # JAX's codec.encode of doc512, W=16, K=64
+
+
 def bsvd_path(codec, bsvd, cli, pnm, dev):
     """BSVD as a user calls it: codec 11 on doc512, learn on both distance
     routes, and the bsvd CLI at K = 512."""
@@ -750,10 +1115,13 @@ def bsvd_path(codec, bsvd, cli, pnm, dev):
     t = time.perf_counter() - t0
     if blob != codec.encode(doc, p, device="cpu"):
         raise AssertionError("codec 11 doc512: cuda stream != cpu stream")
+    if len(blob) != CODEC11_BYTES:
+        raise AssertionError(f"codec 11 doc512 is {len(blob)} B, not JAX's "
+                             f"{CODEC11_BYTES}")
     if not np.array_equal(codec.decode(blob), doc):
         raise AssertionError("codec 11 doc512 does not round-trip")
-    log(f"codec 11: doc512 W=16 K=64 -> {len(blob)} B, == the CPU encode, "
-        f"round-trips ({t * 1e3:.1f} ms wall, first call)")
+    log(f"codec 11: doc512 W=16 K=64 -> {len(blob)} B (JAX's bytes), == the "
+        f"CPU encode, round-trips ({t * 1e3:.1f} ms wall, first call)")
 
     X = bsvd.patchify_to_rows(torch.from_numpy(doc).to(dev), 16)
     packed = bsvd.learn(X, K=64, init="random_centroids")
@@ -1971,6 +2339,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--parallel-rank"]:      # parallel_world2's ranks
+        return parallel_rank(int(sys.argv[2]), int(sys.argv[3]))
     sys.path.insert(0, REPO)
     from binary_image_compression_tpu_torch import cli, native
     from binary_image_compression_tpu_torch.models import (archive, bsvd,
@@ -2053,6 +2423,8 @@ def main() -> int:
         if ran:
             raise AssertionError(f"codec47 {name} path launched {ran}")
     host_codecs_phase(codec, pnm)
+    par1 = parallel_world1(compress, codec, native, pnm, _cuda, dev, gpu)
+    parallel_world2(gpu)
 
     img, _, out = stage_times(compress, fs, bitpack, codec, pnm, dev, gpu)
     kt = kernel_times(compress, fs, dc, roofline, img, out, serial, dev,
@@ -2078,21 +2450,22 @@ def main() -> int:
                     bound_ms=bound[0], bound_by=bound[1], library_ms=lib)
     kernels = [
         entry("field_plane", "fused_search.cu", "pallas_kernels.py:451",
-              causal["field_plane"] + c47_k1["field_plane"], err1p,
-              *kt["plane"]),
+              causal["field_plane"] + c47_k1["field_plane"]
+              + par1["field_plane"], err1p, *kt["plane"]),
         entry("fused_search_select", "fused_search.cu",
               "pallas_kernels.py:541", causal["fused_search_select"]
-              + c47_k1["fused_search_select"], err1, *kt["k1"]),
+              + c47_k1["fused_search_select"] + par1["fused_search_select"],
+              err1, *kt["k1"]),
         entry("decide_modes", "decide_modes.cu", "pallas_decide.py:100",
               causal["decide_modes"], err2, *kt["k2"]),
         entry("strict_analyze", "strict_analyze.cu", "pallas_strict.py:61",
               strict_c["strict_analyze"], err3, k3, k3p, b3, None),
         entry("banded_plane", "select_windows.cu", "search.py:203",
-              banded["banded_plane"] + c47_k4["banded_plane"], err4p,
-              *plane4),
+              banded["banded_plane"] + c47_k4["banded_plane"]
+              + par1["banded_plane"], err4p, *plane4),
         entry("select_windows", "select_windows.cu", "pallas_kernels.py:407",
-              banded["select_windows"] + c47_k4["select_windows"], err4,
-              *k4t),
+              banded["select_windows"] + c47_k4["select_windows"]
+              + par1["select_windows"], err4, *k4t),
         entry("packed_dist_matrix", "packed_dist.cu", "pallas_kernels.py:45",
               bsvd_c.get("packed_dist_matrix", 0), err5, k5, k5p, b5, lib5),
         entry("packed_row_weight", "packed_dist.cu", "pallas_kernels.py:728",

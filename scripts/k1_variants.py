@@ -76,7 +76,7 @@ def build(tmp: str) -> dict:
         lib = ctypes.CDLL(path)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.bic_fused_search_select.restype = i
-        lib.bic_fused_search_select.argtypes = [p, p] + [i] * 15 + [p]
+        lib.bic_fused_search_select.argtypes = [p, p] + [i] * 16 + [p]
         libs[name] = lib
     return libs
 

@@ -81,7 +81,7 @@ def build(tmp: str) -> dict:
             raise RuntimeError(f"nvcc failed on {name}:\n{err[-3000:]}")
         lib = ctypes.CDLL(path)
         lib.bic_select_windows.restype = i
-        lib.bic_select_windows.argtypes = [p] * 3 + [i] * 14 + [p]
+        lib.bic_select_windows.argtypes = [p] * 3 + [i] * 16 + [p]
         lib.bic_banded_plane.restype = i
         lib.bic_banded_plane.argtypes = [p, p] + [i] * 5 + [p]
         libs[name] = lib

@@ -14,6 +14,7 @@ from binary_image_compression_tpu.models import bsvd as jb
 from binary_image_compression_tpu.ops import entropy as jent
 from binary_image_compression_tpu_torch.models import bsvd as tb
 from binary_image_compression_tpu_torch.ops import entropy as tent
+from binary_image_compression_tpu_torch.utils import threefry
 
 
 def _X(rng, n=48, m=64, dens=0.3):
@@ -203,13 +204,18 @@ def test_init_partition_matches_jax(K):
 
 @pytest.mark.parametrize("init", sorted(tb.INITIALIZERS))
 def test_initializers_draw_from_the_seed(init):
-    """Same seed, same state; the draw runs on a CPU generator."""
-    X = _t(_X(np.random.RandomState(9), n=30, m=40))[0]
-    a = tb.INITIALIZERS[init](tb._generator(5), X, 6)
-    b = tb.INITIALIZERS[init](tb._generator(5), X, 6)
-    for x, y in zip(a, b):
+    """Same seed, same state: the draw replays JAX's threefry key, so each
+    initializer gives JAX's state for the same key."""
+    Xn = _X(np.random.RandomState(9), n=30, m=40)
+    X = _t(Xn)[0]
+    a = tb.INITIALIZERS[init](threefry.PRNGKey(5), X, 6)
+    b = tb.INITIALIZERS[init](threefry.PRNGKey(5), X, 6)
+    want = jb.INITIALIZERS[init](jax.random.PRNGKey(5),
+                                 jnp.asarray(Xn, jnp.int8), 6)
+    for x, y, w in zip(a, b, want):
         assert x.dtype == torch.int8 and torch.equal(x, y)
         assert x.device == X.device
+        _eq(x, w)
 
 
 # --- drivers, from partition (no draw) ------------------------------------

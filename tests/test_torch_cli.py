@@ -49,19 +49,32 @@ def test_cli_archive_extract(tmp_path):
         cli.main(["extract", arc, out, "--page", "3"])
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--codec", "10"], "item 7"), (["--codec", "11"], "item 7"),
-    (["--codec", "13"], "item 7")])
-def test_cli_unported_options_name_the_roadmap_item(tmp_path, argv, item):
-    """Archives of codecs 10, 11 and 13 are what the CLI still lacks
-    (ROADMAP.md Queue 1 item 7); every codec compresses."""
-    src = os.path.join(FIX, "text64.pbm")
-    with pytest.raises(SystemExit, match=item):
-        cli.main(["archive", src, str(tmp_path / "a.bica"), *argv,
-                  "--device", "cpu"])
+@pytest.mark.parametrize("codec_id", ["10", "11", "13"])
+def test_cli_archive_codecs_10_11_13_equal_jax_cli(tmp_path, codec_id):
+    """archive --codec 10/11/13 writes the archive JAX's ``cmd_archive``
+    builds, byte for byte (codec 11 learns from the same threefry draw),
+    and extracts each page; an unknown codec is refused.  JAX's CLI hands
+    ``--codec`` to ``CodecParams`` as a string, which its encoder refuses,
+    so its ``encode_archive`` is called here with the integer."""
+    from binary_image_compression_tpu.models import archive as jarchive
+    srcs = [os.path.join(FIX, n) for n in ("text64.pbm",
+                                           "ragged75x101.pbm")]
+    arc = str(tmp_path / "a.bica")
+    cli.main(["archive", *srcs, arc, "--codec", codec_id, "-W", "8",
+              "--device", "cpu"])
+    want = jarchive.encode_archive(
+        [pnm.read_pbm(f) for f in srcs],
+        jcodec.CodecParams(codec=int(codec_id), W=8, T=None, R=128,
+                           strict=False), use_tpu=True)
+    with open(arc, "rb") as f:
+        assert f.read() == want
+    out = str(tmp_path / "x.pbm")
+    cli.main(["extract", arc, out, "--page", "1"])
+    with open(srcs[1], "rb") as f1, open(out, "rb") as f2:
+        assert f1.read() == f2.read()
     with pytest.raises(SystemExit, match="unknown codec"):
-        cli.main(["compress", src, str(tmp_path / "a.bic"), "--codec", "5",
-                  "--device", "cpu"])
+        cli.main(["compress", srcs[0], str(tmp_path / "a.bic"), "--codec",
+                  "5", "--device", "cpu"])
 
 
 def _both(capsys, argv, jargv=None):
@@ -316,3 +329,28 @@ def test_port_imports_no_jax():
                     assert top not in ("jax", "jaxlib",
                                        "binary_image_compression_tpu"), \
                         (f, n)
+
+
+@pytest.mark.parametrize("codec_id,argv", [("8", ["-W", "8", "-R", "16"]),
+                                           ("4", ["-W", "16", "-R", "32"])])
+def test_cli_shard_tiles_world_of_one(tmp_path, capsys, codec_id, argv):
+    """compress --shard tiles alone is a world of 1 (gloo for --device cpu):
+    the same bytes as compress without it, and no process group left."""
+    import torch.distributed as dist
+    src = os.path.join(FIX, "ragged75x101.pbm")
+    a, b = str(tmp_path / "a.bic"), str(tmp_path / "b.bic")
+    cli.main(["compress", src, a, "--codec", codec_id, *argv, "--device",
+              "cpu", "--shard", "tiles", "--profile"])
+    out = capsys.readouterr().out
+    assert "1 tile shards" in out and "native_assembly" in out
+    assert not dist.is_initialized()
+    cli.main(["compress", src, b, "--codec", codec_id, *argv, "--device",
+              "cpu"])
+    with open(a, "rb") as f1, open(b, "rb") as f2:
+        assert f1.read() == f2.read()
+    with pytest.raises(SystemExit, match="causal"):
+        cli.main(["compress", src, a, "--mode", "strict", "--shard", "tiles",
+                  "--device", "cpu"])
+    with pytest.raises(SystemExit, match="causal"):
+        cli.main(["compress", src, a, "--codec", "12", "--shard", "tiles",
+                  "--device", "cpu"])

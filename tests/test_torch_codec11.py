@@ -3,6 +3,7 @@ package, byte for byte from JAX's initial state; the decoder both ways; the
 header bounds; the CLI's codec 11 and ``bsvd`` on the CPU; and the port's
 independence from JAX."""
 
+import functools
 import os
 import subprocess
 import sys
@@ -27,6 +28,14 @@ FIX = os.path.join(REPO, "tests", "fixtures")
 SEED = 34503498  # codec 11's default seed in both packages
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_stream(name, W):
+    """JAX's codec-11 stream of a fixture (learning compiles; computed once
+    for the tests that share it)."""
+    img = pnm.read_pbm(os.path.join(FIX, name))
+    return jcodec.encode(img, jcodec.CodecParams(codec=11, W=W, T=0, R=0))
+
+
 @pytest.mark.parametrize("name,W,size", [("doc512.pbm", 16, 24209),
                                          ("text64.pbm", 8, None),
                                          ("ragged75x101.pbm", 8, None)])
@@ -34,8 +43,7 @@ def test_codec11_from_jax_state_is_byte_identical(name, W, size):
     """JAX's initial (D0, A0) -> the port's learn_from + _write_bsvd gives
     JAX's codec.encode stream; each package decodes the other's."""
     img = pnm.read_pbm(os.path.join(FIX, name))
-    jp = jcodec.CodecParams(codec=11, W=W, T=0, R=0)
-    want = jcodec.encode(img, jp)
+    want = _jax_stream(name, W)
     if size is not None:
         assert len(want) == size
     X = np.asarray(jbsvd.patchify_to_rows(img, W))
@@ -51,6 +59,20 @@ def test_codec11_from_jax_state_is_byte_identical(name, W, size):
     assert got == want
     np.testing.assert_array_equal(codec.decode(want), img)
     np.testing.assert_array_equal(jcodec.decode(got), img)
+
+
+@pytest.mark.parametrize("name,W,size", [("doc512.pbm", 16, 24209),
+                                         ("text64.pbm", 8, None)])
+def test_codec11_encode_is_jax_stream(name, W, size):
+    """codec.encode alone gives JAX's stream: the initializer replays JAX's
+    threefry draw from the default seed."""
+    img = pnm.read_pbm(os.path.join(FIX, name))
+    want = _jax_stream(name, W)
+    got = codec.encode(img, codec.CodecParams(codec=11, W=W, T=0, R=0),
+                       device="cpu")
+    assert got == want
+    if size is not None:
+        assert len(got) == size
 
 
 def test_codec11_encode_on_cpu_round_trips():
@@ -140,9 +162,11 @@ def test_cli_codec11_round_trip(tmp_path, capsys):
     cli.main(["decompress", bic, out])
     with open(src, "rb") as f1, open(out, "rb") as f2:
         assert f1.read() == f2.read()
-    with pytest.raises(SystemExit, match="item 7"):
-        cli.main(["archive", src, str(tmp_path / "c.bica"), "--codec", "11",
-                  "--device", "cpu"])
+    arc = str(tmp_path / "c.bica")
+    cli.main(["archive", src, arc, "--codec", "11", "-W", "8", "--device",
+              "cpu"])
+    with open(bic, "rb") as f1, open(arc, "rb") as f2:
+        assert f2.read()[16:] == f1.read()   # "BICA", n = 1, offset 0
 
 
 def test_cli_bsvd_matches_jax_cli(tmp_path):

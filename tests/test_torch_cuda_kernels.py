@@ -224,6 +224,48 @@ def test_k4_kernel_matches_plain(dev, rows, cols, W, R, B):
     assert int(got[..., 3].sum()) > 0
 
 
+def _shard_frame(grid, base, blk, R):
+    """A shard's frame of padded tile grids [B, gh, gw]: the R rows above
+    rows base..base+blk (zeros above the page), then those rows."""
+    B, gh, gw = grid.shape
+    frame = np.zeros((B, R + blk, gw), dtype=bool)
+    lo = max(base - R, 0)
+    frame[:, R - (base - lo):, :] = grid[:, lo:base + blk]
+    return frame
+
+
+# rows, cols, W, R, shard base row, shard rows: tiles at frame row R, masks
+# and keys at absolute rows (y_base = base - R, negative for the top shard)
+SHARD_CASES = [(256, 256, 16, 64, 128, 64), (256, 256, 16, 100, 0, 64),
+               (96, 101, 8, 24, 40, 24), (512, 512, 64, 128, 256, 128),
+               (256, 256, 40, 64, 0, 80), (128, 300, 40, 64, 80, 40)]
+
+
+@pytest.mark.parametrize("rows,cols,W,R,base,blk", SHARD_CASES)
+def test_k1_k4_shard_frame_match_plain(dev, rows, cols, W, R, base, blk):
+    """K1 (W <= 32) and K4 on a shard frame (row0 = R, y_base = base - R)
+    == their plain versions, field for field."""
+    pages = np.random.RandomState(W + base).rand(2, rows, cols) < 0.3
+    ny, nx = -(-rows // W), -(-cols // W)
+    grid = np.zeros((2, ny * W, nx * W), dtype=bool)
+    grid[:, :rows, :cols] = pages
+    img = torch.from_numpy(_shard_frame(grid, base, blk, R)).to(dev)
+    kw = dict(W=W, R=R, T_thresh=2, cols=cols, invert=True,
+              y_base=base - R, row0=R)
+    ny_loc = blk // W
+    plain_E = fs._field_plane(img, W, img.shape[1], nx * W)
+    if fs.fused_supported(ny_loc, nx, W, R):
+        got, oy, _ = fs.fused_search_select(img, ny_loc, nx, **kw)
+        want = fs.fused_search_select_plain(fs.to_i32(plain_E), ny_loc, nx,
+                                            **kw)
+    else:
+        got, oy, _ = sw.select_windows(img, ny_loc, nx, **kw)
+        want = sw.select_windows_plain(plain_E, ny_loc, nx, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(got[..., 3].sum()) > 0
+
+
 def test_k4_kernel_no_invert_matches_plain_on_doc512(dev):
     """K4 with the complement trick off (codecs 4 and 7) at doc512 W=64
     R=128, field for field against its plain version."""
