@@ -24,7 +24,8 @@ static table and interleaved rANS, kernel K7), and every other codec (1,
 2, 3, 4, 6, 7, 10, 11, 12) to ``codec.encode`` on the host (codec 11
 learns on ``--device``; codecs 4 and 7 reach the device encoder through
 the API, ``compress.encode``).  ``--codec auto`` keeps the smaller of codec
-13 (host entropy) and codec 8.  ``compress --shard tiles`` splits one
+13 (host entropy) and codec 8, and ignores ``--shard``, as JAX's CLI
+does.  ``compress --shard tiles`` splits one
 page's tile rows over the ranks of a ``torch.distributed`` world (causal
 codecs 4/7/8; run it under ``torchrun --nproc-per-node N``, or alone as a
 world of 1; rank 0 writes the output).  Archives take every codec (causal
@@ -110,15 +111,16 @@ def cmd_compress(args):
     if ext != ".pbm":
         sys.exit(f"{args.input}: compress takes .pbm, .pgm, .pnm or .ppm")
     img = pnm.read_pbm(args.input)
-    if args.shard == "tiles":
-        return _compress_tile_sharded(args, img)
     if args.codec == "auto":
-        # the smaller of codec 13 (host entropy) and codec 8 (JAX cli.py:127)
+        # the smaller of codec 13 (host entropy) and codec 8, whatever
+        # --shard says (JAX cli.py:58-59, :127)
         p13 = codec.CodecParams(codec=13, W=0, T=0, R=0)
         p8 = codec.CodecParams(codec=8, W=args.W, R=args.R,
                                strict=args.mode == "strict")
         blob = min((compress.encode_scab(img, p13, device=args.device),
                     _encode8(img, p8, args.device)), key=len)
+    elif args.shard == "tiles":
+        return _compress_tile_sharded(args, img)
     else:
         params = _params(args)
         if params.codec == 13:

@@ -12,7 +12,10 @@ codelength.
   flips on the packed rows, in one launch of the pursuit kernel
   (``ops/packed_dist.packed_pursuit``, K5 with K6 fused in).  The
   ``"mxu"`` route sweeps all rows at once with one float32 product per
-  sweep.  Both give the same integers, so the same flips.
+  sweep.  The ``"gram"`` route sweeps too, but carries the products
+  <E_i, D_k> from sweep to sweep: G = D D^T once per call, then one
+  correction product per sweep.  All three give the same integers, so the
+  same flips.
 * The dictionary updates are majority votes, atom after atom, each fixing
   up E before the next: a serial chain by the reference's semantics
   (bsvd.cpp:463-735), a Python loop over tensors here.
@@ -27,11 +30,13 @@ over 0/1 operands with sums below 2**24, so it is an exact integer, with
 TF32 on or off; ``update_dictionary_*``, the mxu route, ``residual``
 and the initializers depend on that.  No fp16 or bf16 anywhere, and no int8
 ``torch.matmul`` (CUDA has none).  JAX's ``lax.while_loop`` conditions
-become one ``.item()`` per sweep on the mxu route; the packed route's
-pursuit has no host sync.
+become one ``.item()`` per sweep on the mxu and gram routes; the packed
+route's pursuit has no host sync.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -40,7 +45,9 @@ from ..ops import bitpack, packed_dist
 from ..ops.entropy import universal_codelength_t as _ucl
 from ..utils import threefry
 
-DISTANCES = ("packed", "mxu")
+# the forms of d[i, k] (``distances_to_atoms``), and the pursuit's routes
+DISTANCE_FORMS = ("packed", "mxu")
+DISTANCES = DISTANCE_FORMS + ("gram",)
 
 _F32 = torch.float32
 
@@ -54,9 +61,9 @@ def _pack(rows):
     return bitpack.to_i32(bitpack.pack(rows)).contiguous()
 
 
-def _check_distances(distances: str) -> None:
-    if distances not in DISTANCES:
-        raise ValueError(f"distances={distances!r}: one of {DISTANCES}")
+def _check_distances(distances: str, allowed=DISTANCES) -> None:
+    if distances not in allowed:
+        raise ValueError(f"distances={distances!r}: one of {allowed}")
 
 
 def distances_to_atoms(E, D, impl: str = "packed"):
@@ -65,7 +72,7 @@ def distances_to_atoms(E, D, impl: str = "packed"):
     impl="packed": K5 on the packed rows, int32, any M.  impl="mxu": one
     float32 product, |E_i| + |D_k| - 2 <E_i, D_k>.  Every value is an exact
     integer in both forms."""
-    _check_distances(impl)
+    _check_distances(impl, DISTANCE_FORMS)
     if impl == "packed":
         return packed_dist.packed_dist_matrix(_pack(E), _pack(D))
     we = E.sum(dim=1, dtype=_F32)
@@ -89,7 +96,8 @@ def update_coefficients(E, D, A, max_flips: int | None = None,
     ``packed_dist.packed_pursuit`` call on a copy of A (one kernel launch on
     the card, no host sync), then unpacks E.  The mxu route sweeps: one
     float32 product per sweep for d, |E_i| carried, one host sync per
-    sweep."""
+    sweep.  The gram route (``_update_coefficients_gram``) sweeps with the
+    products carried."""
     _check_distances(distances)
     N, M = E.shape
     K = D.shape[0]
@@ -100,6 +108,8 @@ def update_coefficients(E, D, A, max_flips: int | None = None,
         A = A.clone(memory_format=torch.contiguous_format)
         changed, _ = packed_dist.packed_pursuit(Ep, _pack(D), A, max_flips)
         return bitpack.unpack(Ep, M).to(E.dtype), A, changed
+    if distances == "gram":
+        return _update_coefficients_gram(E, D, A, max_flips)
     w = E.sum(dim=1, dtype=_F32)
     ks = torch.arange(K, device=E.device)
     active = torch.ones((N,), dtype=torch.bool, device=E.device)
@@ -114,6 +124,48 @@ def update_coefficients(E, D, A, max_flips: int | None = None,
         A = torch.where(improve[:, None], A ^ sel, A)
         E = torch.where(improve[:, None], E ^ D[bestk], E)
         w = torch.where(improve, bestd, w)
+        changed |= improve
+        active = improve
+        it += 1
+    return E, A, changed.sum()
+
+
+def _update_coefficients_gram(E, D, A, max_flips: int):
+    """The Gram / cross-carry sweep (JAX ``_update_coefficients_gram``): the
+    reference's update_coefficients_fast (bsvd.cpp:1116-1213) done right
+    over GF(2).  cross[i, k] = <E_i, D_k> and |E_i| are carried; a flip
+    E_i ^= D_b changes cross by the exact identity
+
+        <E_i ^ D_b, D_k> = <E_i, D_k> + G[b, k] - 2 <E_i & D_b, D_k>
+
+    with G = D D^T formed once, so a sweep costs one product, <E_i & D_b,
+    D_k> over the improving rows, in place of the distance product.  Every
+    value is an exact integer in float32, so the flips are the mxu
+    route's.  One host sync per sweep."""
+    N = E.shape[0]
+    K = D.shape[0]
+    Df = _f32(D)
+    wd = D.sum(dim=1, dtype=_F32)
+    G = Df @ Df.T
+    cross = _f32(E) @ Df.T
+    w = E.sum(dim=1, dtype=_F32)
+    ks = torch.arange(K, device=E.device)
+    active = torch.ones((N,), dtype=torch.bool, device=E.device)
+    changed = torch.zeros((N,), dtype=torch.bool, device=E.device)
+    it = 0
+    while it < max_flips and bool(active.any()):
+        d = w[:, None] + wd[None, :] - 2.0 * cross
+        bestk = torch.argmin(d, dim=1)
+        bestd = d.gather(1, bestk[:, None])[:, 0]
+        improve = (bestd < w) & active
+        sel = (bestk[:, None] == ks[None, :]).to(A.dtype)
+        A = torch.where(improve[:, None], A ^ sel, A)
+        atom = D[bestk]
+        T = _f32((E & atom) * improve[:, None]) @ Df.T
+        cross = torch.where(improve[:, None], cross + G[bestk] - 2.0 * T,
+                            cross)
+        w = torch.where(improve, bestd, w)
+        E = torch.where(improve[:, None], E ^ atom, E)
         changed |= improve
         active = improve
         it += 1
@@ -304,6 +356,16 @@ INITIALIZERS = {
     "partition": initialize_partition,
     "graph_grow": initialize_graph_grow,
 }
+
+
+@dataclass
+class LearnConfig:
+    """``learn``'s settings (JAX ``bsvd.LearnConfig``)."""
+    K: int = 64
+    init: str = "neighbor"
+    dict_update: str = "steepest"
+    max_iters: int = 30
+    seed: int = 34503498  # the reference's global default (bsvd.cpp:23)
 
 
 # --- drivers ---------------------------------------------------------------

@@ -1,10 +1,12 @@
-"""Codelengths and the adaptive Golomb-Rice context.
+"""Codelengths and the adaptive Golomb-Rice and exp-Golomb counters.
 
 Counterpart of ``lnchoose``, ``enum_codelength``, ``universal_codelength``,
-``universal_codelength_jnp`` (as ``universal_codelength_t``),
-``GolombCoder`` and the adaptive exp-Golomb table ``EGLUT`` in
+``enum_codelength_jnp`` and ``universal_codelength_jnp`` (as
+``enum_codelength_t`` and ``universal_codelength_t``), ``GolombCoder``,
+``golomb_scan``, ``EGCoder`` and the exp-Golomb table ``EGLUT`` in
 ``binary_image_compression_tpu/ops/entropy.py`` (reference coding.cpp:19-32,
-Golomb.h:12-29, GolombCoder.cpp:13-34, eg.cpp:2).
+Golomb.h:12-29, GolombCoder.cpp:13-34, eg.cpp:2-37).  The reference's coders
+only count bits; so do these.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import math
 from dataclasses import dataclass
 
 import torch
+
+from .bitpack import to_i32
 
 COSMOS_LOG2E = 1.442695040888963387004650940070860087872  # coding.h:10
 
@@ -62,6 +66,16 @@ def universal_codelength_t(n, r) -> torch.Tensor:
     return torch.where((r > 0) & (r < n), mid, 0.5 * torch.log2(n))
 
 
+def enum_codelength_t(n, r) -> torch.Tensor:
+    """Elementwise ``enum_codelength`` in float32 by ``torch.lgamma``, the
+    twin of JAX's ``enum_codelength_jnp``; 0 where r == 0."""
+    r = torch.as_tensor(r).to(torch.float32)
+    n = torch.as_tensor(n, dtype=torch.float32, device=r.device)
+    ln = torch.lgamma(n + 1) - torch.lgamma(r + 1) - torch.lgamma(n - r + 1)
+    return torch.where(r > 0, ln * COSMOS_LOG2E,
+                       torch.zeros((), dtype=torch.float32, device=r.device))
+
+
 @dataclass
 class GolombCoder:
     """Context-adaptive Rice codelength counter, bit-exact vs the reference.
@@ -86,3 +100,68 @@ class GolombCoder:
             k += 1
         self.k = k
         return nbits
+
+
+def golomb_scan(samples) -> tuple[torch.Tensor, torch.Tensor]:
+    """``GolombCoder`` over a 1-D stream of uint32 samples, as JAX's in-graph
+    scan computes it: (int32 bit length of each sample, int32 total).  The
+    state is uint32: n << k wraps at 32 bits, and where no k < 32 gives
+    (n << k) >= accumulated error, k is 31 (``GolombCoder`` takes 32
+    there; both as in JAX)."""
+    u = torch.as_tensor(samples).to(torch.int64) & _U32
+    lens = []
+    acc, n, k = 0, 0, 1
+    for x in u.tolist():
+        lens.append((k + (x >> k) + 1) & _U32)
+        n = (n + 1) & _U32
+        acc = (acc + x) & _U32
+        k = 0
+        while k < 32 and ((n << k) & _U32) < acc:
+            k += 1
+        k = min(k, 31)
+    out = to_i32(torch.tensor(lens, dtype=torch.int64, device=u.device))
+    return out, out.sum(dtype=torch.int32)
+
+
+@dataclass
+class EGCoder:
+    """The reference's run-length codelength counter (eg.cpp:20-37), not
+    codec 10's coder.
+
+    ``adaptive=False`` (default) is the reference as shipped: codeRun never
+    grows the block (incBlockSize is commented out at eg.cpp:25), so with
+    blockSize = 1 the full-block part is unary.  ``adaptive=True`` is the
+    intended MELCODE adaptation (grow on a full block, shrink on a
+    remainder), with the LUT index clamped to 31 where the reference reads
+    EGLUT[32] (eg.cpp:4-10; DEVIATIONS.md)."""
+    adaptive: bool = False
+    g: int = 1          # eg.h ctor
+    block_size: int = 1
+    lut_index: int = 0
+    bitcount: int = 0
+
+    def _inc(self):
+        if self.lut_index < 31:
+            self.lut_index += 1
+        self.g = EGLUT[self.lut_index]
+        self.block_size = 1 << self.g
+
+    def _dec(self):
+        if self.lut_index > 0:
+            self.lut_index -= 1
+        self.g = EGLUT[self.lut_index]
+        self.block_size = 1 << self.g
+
+    def code_run(self, length: int, eol: bool) -> int:
+        n0 = self.bitcount
+        while length >= self.block_size:
+            length -= self.block_size
+            self.bitcount += 1
+            if self.adaptive:
+                self._inc()
+        if eol:
+            self.bitcount += 1
+        else:
+            self.bitcount += self.g + 1
+            self._dec()
+        return self.bitcount - n0

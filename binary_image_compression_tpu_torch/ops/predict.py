@@ -3,7 +3,8 @@
 Counterpart of ``med_forward`` (:56, with ``_shift_right_1bit`` and
 ``_shift_down_1row``), ``_prefix_xor_bits`` (:70), ``med_inverse`` (:88)
 and the dense-bool oracles ``np_med_forward`` / ``np_med_inverse`` (:99,
-:111) in ``binary_image_compression_tpu/ops/predict.py``: the residual
+:111) and ``predictor_matrices`` (:121) in
+``binary_image_compression_tpu/ops/predict.py``: the residual
 r(i,j) = P(i,j) ^ P(i-1,j) ^ P(i,j-1) ^ P(i-1,j-1), zeros outside the
 image, r(0,0) = P(0,0) (DEVIATIONS.md 1), is three shifted XORs of the
 packed plane, and its inverse a prefix XOR along each row and then down
@@ -18,16 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .bitpack import LANE, nwords
-
-
-def trail_mask(cols: int, device=None) -> torch.Tensor:
-    """int32 [nwords(cols)]: the bits of each word that lie inside a row."""
-    m = [-1] * nwords(cols)
-    if cols % LANE:
-        v = (0xFFFFFFFF << (LANE - cols % LANE)) & 0xFFFFFFFF
-        m[-1] = v - (1 << 32) if v >= 1 << 31 else v
-    return torch.tensor(m, dtype=torch.int32, device=device)
+from . import bitpack
+from .bitpack import LANE, trail_mask
 
 
 def _shift_right_1bit(x: torch.Tensor) -> torch.Tensor:
@@ -100,3 +93,17 @@ def np_med_inverse(r: np.ndarray) -> np.ndarray:
     r = np.asarray(r, dtype=bool)
     x = np.bitwise_xor.accumulate(r, axis=-1)
     return np.bitwise_xor.accumulate(x, axis=-2)
+
+
+def predictor_matrices(M: int) -> tuple[np.ndarray, np.ndarray]:
+    """The reference's bidiagonal difference matrix D and its inverse iD
+    (compress6_test.cpp:64-76), numpy uint32 words with cols = M: D has ones
+    on the diagonal and at D[i - 1, i], iD is the upper triangle of ones, so
+    a vectorized patch row V codes predictively as V D over GF(2)."""
+    D = np.zeros((M, M), dtype=bool)
+    iD = np.zeros((M, M), dtype=bool)
+    idx = np.arange(M)
+    D[idx, idx] = True
+    D[idx[:-1], idx[1:]] = True
+    iD[np.triu_indices(M)] = True
+    return bitpack.np_pack(D), bitpack.np_pack(iD)

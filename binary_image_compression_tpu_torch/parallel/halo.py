@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import predict
+from ..ops import bitpack, predict
 from .mesh import Mesh
 
 
@@ -73,5 +73,5 @@ def med_inverse_sharded(mesh: Mesh, residual: torch.Tensor,
             carry = carry ^ inc
             last = last ^ inc
         shift *= 2
-    x = (x ^ carry) & predict.trail_mask(cols, x.device)
+    x = (x ^ carry) & bitpack.trail_mask(cols, x.device)
     return mesh.all_gather_cat(x, "data")[:rows]

@@ -1,7 +1,7 @@
 """PBM (P4), PGM (P2/P5) and PPM (P6) IO.
 
 Counterpart of ``read_pbm``, ``write_pbm``, ``read_pbm_packed``,
-``read_pnm``, ``write_pgm`` and ``write_ppm`` in
+``write_pbm_packed``, ``read_pnm``, ``write_pgm`` and ``write_ppm`` in
 ``binary_image_compression_tpu/utils/pnm.py``; the PBM writer is
 byte-identical with the reference's pbm.cpp:54-77, the P2 writer with
 pnm.cpp:110-117.
@@ -12,6 +12,7 @@ from __future__ import annotations
 import io
 
 import numpy as np
+import torch
 
 from ..ops import bitpack
 
@@ -71,6 +72,17 @@ def read_pbm_packed(path_or_file):
     """Read a PBM directly into (uint32 packed [rows, w], rows, cols)."""
     bits = read_pbm(path_or_file)
     return bitpack.np_pack(bits), bits.shape[0], bits.shape[1]
+
+
+def write_pbm_packed(packed, cols: int, path_or_file) -> None:
+    """Write packed rows [rows, nwords(cols)] as P4: uint32 words (numpy),
+    or a torch tensor of words on any device (int64 values or int32 bit
+    patterns)."""
+    if isinstance(packed, torch.Tensor):
+        bits = bitpack.unpack(packed, cols).cpu().numpy()
+    else:
+        bits = bitpack.np_unpack(np.asarray(packed), cols)
+    write_pbm(bits, path_or_file)
 
 
 def _write(data: bytes, path_or_file) -> None:

@@ -41,7 +41,13 @@ stack on "device-assembly" and none elsewhere, one K7 launch per stack on
 through K4, with the complement trick off and no K2 launch: 16,986 /
 17,094 and 22,367 / 22,375 B, with the encoder's stage profile), then the
 host codecs 1, 2, 3, 6 and 12 at their pinned bytes and the CLI's
-``compare`` and ``info`` as subprocesses, and multi-device
+``compare`` and ``info`` as subprocesses, the L0 bitpack API (``l0_api``:
+every name on the card == the same call on the CPU, exact, at K5's doc512
+shape, [1024, 8] x [64, 8] words, and on 250-column rows with dirty
+padding; ``dist_matrix`` launches K5 and ``row_weight``, ``weight``,
+``gf2_sum``, ``row_sum`` and ``dist`` launch K6; the Gram pursuit and
+``learn`` on the gram route == the packed route on doc512 at K = 64), and
+multi-device
 (``parallel/``): ``encode_tile_sharded`` of a 3300x2550 letter page at
 W = 16 (K1) and W = 64 (K4, 720,310 B), of doc512's top 128 rows (R over
 two shard blocks) and of a ragged page (a pad tile row), each == the
@@ -1180,6 +1186,115 @@ class _Timed:
     def __exit__(self, *exc):
         for n in self.names:
             setattr(self.mod, n, self.orig[n])
+
+
+# the L0 API's cases: (rows of a, rows of b, columns, dirty padding); the
+# first is K5's doc512 shape (codec 11's 1,024 patches of 256 bits against
+# K = 64 atoms, [1024, 8] x [64, 8] words)
+L0_CASES = ((1024, 64, 256, False), (300, 77, 250, True))
+
+
+def l0_words(N, cols, seed, dirty):
+    """Random uint32 words [N, nwords(cols)] as int64 on the CPU, from
+    RandomState(seed); the bits past `cols` random where dirty, else 0."""
+    w = -(-cols // 32)
+    x = np.random.RandomState(seed).randint(0, 2 ** 32, size=(N, w),
+                                            dtype=np.uint64).astype(np.int64)
+    if not dirty and cols % 32:
+        x[:, -1] &= (0xFFFFFFFF << (32 - cols % 32)) & 0xFFFFFFFF
+    return torch.from_numpy(x)
+
+
+def l0_calls(bp, cols, K):
+    """Each name of the L0 API as a function of (a, b) words."""
+    sub = min(31, cols - 8)
+    return {
+        "dist_matrix": lambda a, b: bp.dist_matrix(a, b, cols),
+        "row_weight": lambda a, b: bp.row_weight(a),
+        "weight": lambda a, b: bp.weight(a),
+        "gf2_sum": lambda a, b: bp.gf2_sum(a),
+        "row_sum": lambda a, b: bp.row_sum(a),
+        "dist": lambda a, b: bp.dist(a[:K], b),
+        "xor": lambda a, b: bp.xor(a[:K], b),
+        "bool_and": lambda a, b: bp.bool_and(a[:K], b),
+        "bool_or": lambda a, b: bp.bool_or(a[:K], b),
+        "flip": lambda a, b: bp.flip(a, cols),
+        "col_weight": lambda a, b: bp.col_weight(a, cols),
+        "col_sum": lambda a, b: bp.col_sum(a),
+        "and_counts": lambda a, b: bp.and_counts(a, b, cols),
+        "mul": lambda a, b: bp.mul(a, cols, False, b, cols, True),
+        "transpose": lambda a, b: bp.transpose(b, K, cols),
+        "submatrix": lambda a, b: bp.submatrix(a, 3, 40, 5, 5 + sub, cols),
+        "set_submatrix": lambda a, b: bp.set_submatrix(
+            a, bp.submatrix(b, 0, 30, 0, sub, cols), 7, 2, cols, sub),
+        "unvectorize_patches": lambda a, b: bp.unvectorize_patches(b, 15),
+        "vectorize_patches": lambda a, b: bp.vectorize_patches(
+            bp.unvectorize_patches(b, 15)),
+        "unpatchify": lambda a, b: bp.unpatchify(
+            bp.unvectorize_patches(b[:63], 15), 100, 135, 15),
+    }
+
+
+def l0_api(bitpack, bsvd, pnm, threefry, dev):
+    """The L0 bitpack API as a user calls it: every name on CUDA tensors ==
+    the same call on the CPU, exact, on L0_CASES (dist_matrix through K5,
+    row_weight, weight, gf2_sum, row_sum and dist through K6); then the
+    Gram pursuit on the card == the packed route, and ``learn`` on the gram
+    route == the packed route, on doc512's patches at K = 64."""
+    for N, K, cols, dirty in L0_CASES:
+        a, b = l0_words(N, cols, N + cols, dirty), l0_words(K, cols, K, dirty)
+        ga, gb = a.to(dev), b.to(dev)
+        for name, fn in l0_calls(bitpack, cols, K).items():
+            got, want = fn(ga, gb), fn(a, b)
+            if got.device != ga.device or not torch.equal(got.cpu(), want):
+                raise AssertionError(f"l0_api {name} [{N}] x [{K}] words "
+                                     f"of {cols} bits: card != CPU")
+        if dirty and torch.equal(bitpack.dist_matrix(a, b, cols),
+                                 bitpack.dist_matrix(a & bitpack.from_i32(
+                                     bitpack.trail_mask(cols)), b, cols)):
+            raise AssertionError("l0_api: the dirty padding was not dirty")
+        log(f"l0_api [{N}, {a.shape[1]}] x [{K}, {b.shape[1]}] words, {cols} "
+            f"bits{', dirty padding' if dirty else ''}: "
+            f"{len(l0_calls(bitpack, cols, K))} names, card == CPU, exact")
+    doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
+    X = bsvd.patchify_to_rows(torch.from_numpy(doc).to(dev), 16)
+    D, A = bsvd.initialize_random_centroids(threefry.PRNGKey(34503498), X, 64)
+    E = bsvd.residual(X, D, A)
+    gram = bsvd.update_coefficients(E, D, A, distances="gram")
+    packed = bsvd.update_coefficients(E, D, A, distances="packed")
+    if not (all(torch.equal(x, y) for x, y in zip(gram[:2], packed[:2]))
+            and int(gram[2]) == int(packed[2]) > 0
+            and gram[0].device == X.device):
+        raise AssertionError("gram pursuit != packed pursuit on the card")
+    lg = bsvd.learn(X, K=64, init="random_centroids", distances="gram")
+    lp = bsvd.learn(X, K=64, init="random_centroids")
+    if lg[3] != lp[3] or not all(torch.equal(x, y)
+                                 for x, y in zip(lg[:3], lp[:3])):
+        raise AssertionError("learn: gram and packed routes differ")
+    log(f"l0_api gram pursuit doc512 K=64: == packed route (E, A, "
+        f"{int(gram[2])} rows changed); learn gram == packed, {lg[3]} "
+        f"iterations")
+
+
+def l0_times(bitpack, pd, dev, gpu):
+    """The wrappers beside the kernels alone on L0_CASES:
+    ``bitpack.dist_matrix`` (casts, K5, and on ragged rows the mask and the
+    padding counts) against K5, ``bitpack.row_weight`` against K6, by CUDA
+    events."""
+    for N, K, cols, dirty in L0_CASES:
+        a, b = l0_words(N, cols, N + cols, dirty), l0_words(K, cols, K, dirty)
+        ga, gb = a.to(dev), b.to(dev)
+        ia, ib = bitpack.to_i32(ga), bitpack.to_i32(gb)
+        t = dict(dist_matrix=cuda_ms(
+            lambda: bitpack.dist_matrix(ga, gb, cols), 20),
+                 k5=cuda_ms(lambda: pd._launch_dist(ia, ib), 20),
+                 row_weight=cuda_ms(lambda: bitpack.row_weight(ga), 20),
+                 k6=cuda_ms(lambda: pd._launch_weight(ia), 20))
+        log(f"l0_api [{N}, {a.shape[1]}] x [{K}, {b.shape[1]}] words of "
+            f"{cols} bits: bitpack.dist_matrix {t['dist_matrix']:.4f} ms (K5 "
+            f"alone {t['k5']:.4f} ms), bitpack.row_weight "
+            f"{t['row_weight']:.4f} ms (K6 alone {t['k6']:.4f} ms), CUDA "
+            f"events, mean of 20 [{gpu}]")
 
 
 def device_times(fn, kernels, reps: int = 20):
@@ -2355,7 +2470,8 @@ def main() -> int:
     from binary_image_compression_tpu_torch.ops import select_windows as sw
     from binary_image_compression_tpu_torch.ops import strict as st
     from binary_image_compression_tpu_torch.utils import (bitplanes, pnm,
-                                                          profiling, roofline)
+                                                          profiling, roofline,
+                                                          threefry)
 
     dev = torch.device("cuda", 0)
     gpu = card()
@@ -2423,6 +2539,8 @@ def main() -> int:
         if ran:
             raise AssertionError(f"codec47 {name} path launched {ran}")
     host_codecs_phase(codec, pnm)
+    l0 = drive("l0_api", lambda: l0_api(bitpack, bsvd, pnm, threefry, dev),
+               _cuda, ("packed_dist_matrix", "packed_row_weight"))
     par1 = parallel_world1(compress, codec, native, pnm, _cuda, dev, gpu)
     parallel_world2(gpu)
 
@@ -2433,6 +2551,7 @@ def main() -> int:
         compress, codec, st, sw, fs, bitpack, pnm, roofline, dev, gpu)
     k5, k5p, k6, k6p, lib5, lib6, pur = bsvd_times(codec, bsvd, pd, pnm,
                                                    roofline, letter, dev, gpu)
+    l0_times(bitpack, pd, dev, gpu)
     k7t = scab_times(compress, codec, rd, bitpack, pnm, roofline, dev, gpu)
     k8t = gray_times(codec, compress, eg, rd, bitpack, bitplanes, pnm,
                      roofline, dev, gpu)
@@ -2467,9 +2586,9 @@ def main() -> int:
               banded["select_windows"] + c47_k4["select_windows"]
               + par1["select_windows"], err4, *k4t),
         entry("packed_dist_matrix", "packed_dist.cu", "pallas_kernels.py:45",
-              bsvd_c.get("packed_dist_matrix", 0), err5, k5, k5p, b5, lib5),
+              l0["packed_dist_matrix"], err5, k5, k5p, b5, lib5),
         entry("packed_row_weight", "packed_dist.cu", "pallas_kernels.py:728",
-              bsvd_c.get("packed_row_weight", 0), err6, k6, k6p, b6, lib6),
+              l0["packed_row_weight"], err6, k6, k6p, b6, lib6),
         entry("packed_pursuit", "packed_pursuit.cuh",
               "pallas_kernels.py:45 and :728", bsvd_c["packed_pursuit"],
               err_p, pur[0], pur[2], pur[3], None),

@@ -69,7 +69,7 @@ def test_distances_to_atoms_matches_jax(impl, m):
     _eq(got.to(torch.float32), want)
 
 
-@pytest.mark.parametrize("distances", ["mxu", "packed"])
+@pytest.mark.parametrize("distances", ["mxu", "packed", "gram"])
 @pytest.mark.parametrize("n,m,K", [(40, 48, 8), (64, 96, 16), (128, 64, 32),
                                    (32, 2080, 8)])
 def test_update_coefficients_matches_jax(distances, n, m, K):
@@ -82,7 +82,7 @@ def test_update_coefficients_matches_jax(distances, n, m, K):
     assert int(ct) == int(cj) > 0
 
 
-@pytest.mark.parametrize("distances", ["mxu", "packed"])
+@pytest.mark.parametrize("distances", ["mxu", "packed", "gram"])
 @pytest.mark.parametrize("max_flips", [0, 1, 2])
 def test_update_coefficients_max_flips_matches_jax(distances, max_flips):
     """Sweeps cut short: the carried |E_i| and, on the packed route, the
@@ -100,11 +100,35 @@ def test_update_coefficients_max_flips_matches_jax(distances, max_flips):
 
 @pytest.mark.parametrize("impl", ["gram", "pallas"])
 def test_pursuit_rejects_unknown_distances(impl):
+    """distances_to_atoms takes the two forms of d only; "gram" is a route
+    of the pursuit, which rejects the rest."""
     args = _t(np.zeros((2, 4)), np.zeros((1, 4)), np.zeros((2, 1)))
-    with pytest.raises(ValueError, match="distances"):
-        tb.update_coefficients(*args, distances=impl)
+    if impl not in tb.DISTANCES:
+        with pytest.raises(ValueError, match="distances"):
+            tb.update_coefficients(*args, distances=impl)
     with pytest.raises(ValueError, match="distances"):
         tb.distances_to_atoms(*args[:2], impl=impl)
+
+
+@pytest.mark.parametrize("n,m,K", [(40, 48, 8), (64, 96, 16), (128, 64, 32)])
+def test_gram_route_equals_the_other_routes(n, m, K):
+    """JAX's three shapes (tests/test_bsvd_tpu.py): the gram route's E, A
+    and changed count equal the mxu and packed routes' bit for bit."""
+    X, E, D, A = _common_state(np.random.RandomState(n * m + K), n=n, m=m,
+                               K=K)
+    args = _t(E, D, A)
+    Eg, Ag, cg = tb.update_coefficients(*args, distances="gram")
+    assert int(cg) > 0
+    for route in ("mxu", "packed"):
+        Er, Ar, cr = tb.update_coefficients(*args, distances=route)
+        assert torch.equal(Eg, Er) and torch.equal(Ag, Ar)
+        assert int(cg) == int(cr)
+    assert tb.DISTANCES == ("packed", "mxu", "gram")
+
+
+def test_learn_config_equals_jax():
+    assert tb.LearnConfig() == tb.LearnConfig(**vars(jb.LearnConfig()))
+    assert list(vars(tb.LearnConfig())) == list(vars(jb.LearnConfig()))
 
 
 @pytest.mark.parametrize("n,m,K", [(40, 48, 8), (96, 64, 12)])
@@ -237,7 +261,7 @@ def test_learn_matches_jax(dict_update):
     assert int(got[0].sum()) < int(X.sum())
 
 
-@pytest.mark.parametrize("distances", ["packed", "mxu"])
+@pytest.mark.parametrize("distances", ["packed", "mxu", "gram"])
 def test_learn_from_routes_agree(distances):
     X = _structured(2, 5, 48, 64)
     D0, A0 = tb.initialize_partition(None, *_t(X), 10)

@@ -197,15 +197,20 @@ def test_cli_codec13_round_trip(tmp_path, capsys, argv):
         assert f1.read() == f2.read()
 
 
-@pytest.mark.parametrize("name,mode", [("text64.pbm", "causal"),
-                                       ("noise96x80.pbm", "causal"),
-                                       ("text64.pbm", "strict")])
-def test_cli_codec_auto_keeps_the_smaller(tmp_path, capsys, name, mode):
-    """--codec auto: the smaller of JAX's codec-13 and codec-8 streams."""
+@pytest.mark.parametrize("name,mode,extra", [
+    pytest.param("text64.pbm", "causal", [], id="text64.pbm-causal"),
+    pytest.param("noise96x80.pbm", "causal", [], id="noise96x80.pbm-causal"),
+    pytest.param("text64.pbm", "strict", [], id="text64.pbm-strict"),
+    pytest.param("text64.pbm", "causal", ["--shard", "tiles"],
+                 id="text64.pbm-causal-shard-tiles")])
+def test_cli_codec_auto_keeps_the_smaller(tmp_path, capsys, name, mode,
+                                          extra):
+    """--codec auto: the smaller of JAX's codec-13 and codec-8 streams;
+    with --shard tiles too, which auto ignores, as JAX's CLI does."""
     src = os.path.join(FIX, name)
     bic = str(tmp_path / "a.bic")
     cli.main(["compress", src, bic, "--codec", "auto", "-W", "8", "-R", "32",
-              "--mode", mode, "--device", "cpu"])
+              "--mode", mode, "--device", "cpu"] + extra)
     img = pnm.read_pbm(src)
     want = min((jcodec.encode(img, jcodec.CodecParams(codec=13, W=0, T=0,
                                                       R=0)),

@@ -1,7 +1,9 @@
 """The port's utils: ``galois`` against JAX's ``GF``, checkpoints that
 cross between the packages in both directions, ``PipelineProfile`` and
-``device_trace`` (on the CPU here)."""
+``device_trace`` (on the CPU here), and ``pnm.write_pbm_packed`` against
+JAX's file."""
 
+import io
 import json
 import os
 
@@ -9,9 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from binary_image_compression_tpu.ops import bitpack as jbitpack
 from binary_image_compression_tpu.utils import checkpoint as jcheckpoint
 from binary_image_compression_tpu.utils import galois as jgalois
-from binary_image_compression_tpu_torch.utils import (checkpoint, galois,
+from binary_image_compression_tpu.utils import pnm as jpnm
+from binary_image_compression_tpu_torch.ops import bitpack, predict
+from binary_image_compression_tpu_torch.utils import (checkpoint, galois, pnm,
                                                       profiling)
 
 
@@ -122,3 +127,39 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
     assert any("matmul" in e.get("name", "")
                for e in trace["traceEvents"])
     assert any("matmul" in e.key for e in prof.key_averages())
+
+
+@pytest.mark.parametrize("rows,cols", [(1, 1), (101, 237), (7, 64),
+                                       (3, 250)])
+def test_write_pbm_packed_equals_jax(tmp_path, rows, cols):
+    """The same P4 bytes as JAX's writer from numpy uint32 words, from int64
+    and int32 torch words, and through a file object; padding bits in the
+    words are not written."""
+    bits = np.random.RandomState(rows + cols).rand(rows, cols) < 0.3
+    words = jbitpack.np_pack(bits)
+    jpnm.write_pbm_packed(words, cols, str(tmp_path / "j.pbm"))
+    with open(tmp_path / "j.pbm", "rb") as f:
+        want = f.read()
+    t64 = torch.from_numpy(words.astype(np.int64))
+    dirty = words | ~jbitpack.trail_mask(cols)
+    for i, w in enumerate([words, t64, bitpack.to_i32(t64), dirty]):
+        pnm.write_pbm_packed(w, cols, str(tmp_path / f"{i}.pbm"))
+        with open(tmp_path / f"{i}.pbm", "rb") as f:
+            assert f.read() == want
+    buf = io.BytesIO()
+    pnm.write_pbm_packed(t64, cols, buf)
+    assert buf.getvalue() == want
+
+
+def test_canonical_drive_round_trips(tmp_path):
+    """The PBM round trip through the port's names: read packed, MED
+    forward and inverse on int32 words, write packed, the same file."""
+    img = np.random.RandomState(0).rand(101, 237) < 0.15
+    orig, rt = str(tmp_path / "orig.pbm"), str(tmp_path / "rt.pbm")
+    pnm.write_pbm(img, orig)
+    packed, rows, cols = pnm.read_pbm_packed(orig)
+    words = bitpack.to_i32(torch.from_numpy(packed.astype(np.int64)))
+    back = predict.med_inverse(predict.med_forward(words, cols), cols)
+    pnm.write_pbm_packed(back, cols, rt)
+    with open(orig, "rb") as f1, open(rt, "rb") as f2:
+        assert f1.read() == f2.read()
