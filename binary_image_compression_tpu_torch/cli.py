@@ -17,11 +17,13 @@ Counterpart of ``binary_image_compression_tpu/cli.py``:
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain PyTorch
 versions of the kernels.  ``compress`` routes as JAX's CLI does: codec 8
 in causal mode goes to the device encoder (``--profile`` prints its
-stages), ``--mode strict`` to the residual-substitution kernel K3, codec
-13 to its device context map with the entropy coder on the host
-(``--entropy host``, the default) or on the device (``--entropy device``:
-static table and interleaved rANS, kernel K7), and every other codec (1,
-2, 3, 4, 6, 7, 10, 11, 12) to ``codec.encode`` on the host (codec 11
+stages; ``--spans FILE``, on ``compress`` and ``archive``, writes the
+encoders' spans and counters), ``--mode strict`` to the
+residual-substitution kernel K3, codec 13 to its device context map with
+the entropy coder on the host (``--entropy host``, the default) or on
+the device (``--entropy device``: static table and interleaved rANS,
+kernel K7), and every other codec (1, 2, 3, 4, 6, 7, 10, 11, 12) to
+``codec.encode`` on the host (codec 11
 learns on ``--device``; codecs 4 and 7 reach the device encoder through
 the API, ``compress.encode``).  ``--codec auto`` keeps the smaller of codec
 13 (host entropy) and codec 8, and ignores ``--shard``, as JAX's CLI
@@ -93,6 +95,10 @@ def _add_codec_opts(p):
     p.add_argument("--profile", action="store_true",
                    help="codec 8, causal, or --shard tiles: print the "
                         "encoder's stages (wall clock and MB/s)")
+    p.add_argument("--spans", metavar="FILE", default=None,
+                   help="record the encoders' spans and counters "
+                        "(utils/profiling) and write them to FILE, one "
+                        "JSON object a line")
 
 
 def _encode8(img, params, device, profile=None):
@@ -549,7 +555,34 @@ def main(argv=None):
     p.set_defaults(fn=cmd_planes2pgm)
 
     args = ap.parse_args(argv)
+    if getattr(args, "spans", None):
+        return _with_spans(args)
     args.fn(args)
+
+
+def _with_spans(args):
+    """Run the command with the recorder on, then write what it kept to
+    ``--spans``: {"span", "id", "parent", "request", "thread", "start_ns",
+    "end_ns"} a span (id: its line among the spans, which end in order;
+    parent: the parent's id), then {"count", "n", "t_ns", "within"} a
+    count (within: the id of the span open when it was counted)."""
+    from .utils import profiling
+    profiling.record(True)
+    try:
+        args.fn(args)
+    finally:
+        profiling.record(False)
+        spans, counts = profiling.take()
+        ids = {id(s): i for i, s in enumerate(spans)}
+        with open(args.spans, "w") as f:
+            for i, s in enumerate(spans):
+                f.write(json.dumps(dict(
+                    span=s.name, id=i, parent=ids.get(id(s.parent)),
+                    request=s.request, thread=s.thread, start_ns=s.start,
+                    end_ns=s.end)) + "\n")
+            for name, n, t, sp in counts:
+                f.write(json.dumps(dict(count=name, n=n, t_ns=t,
+                                        within=ids.get(id(sp)))) + "\n")
 
 
 if __name__ == "__main__":

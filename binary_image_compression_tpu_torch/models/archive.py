@@ -21,6 +21,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from ..utils.profiling import span
 from . import codec as codec_mod
 from . import compress as compress_mod
 from .codec import CodecParams
@@ -61,8 +62,9 @@ def encode_pages(pages, params: CodecParams | None = None, *,
 
     def encode(chunk):
         if batched:
-            return compress_mod.encode_batch(
-                np.stack([pages[i] for i in chunk]), params, device=device)
+            with span("stack"):
+                batch = np.stack([pages[i] for i in chunk])
+            return compress_mod.encode_batch(batch, params, device=device)
         return [codec_mod.encode(pages[i], params, device=device)
                 for i in chunk]
 
@@ -78,15 +80,17 @@ def encode_pages(pages, params: CodecParams | None = None, *,
 
 
 def _corpus_fingerprint(pages, params: CodecParams) -> bytes:
-    """Identity of (corpus, codec settings) for checkpoint validity."""
-    h = hashlib.sha256()
-    h.update(repr((params.codec, params.W, params.T, params.R,
-                   params.strict, len(pages))).encode())
-    for p in pages:
-        h.update(struct.pack("<IIi", p.shape[0], p.shape[1],
-                             zlib.crc32(np.packbits(p).tobytes())
-                             & 0x7FFFFFFF))
-    return h.digest()
+    """Identity of (corpus, codec settings) for checkpoint validity (span
+    ``fingerprint``)."""
+    with span("fingerprint"):
+        h = hashlib.sha256()
+        h.update(repr((params.codec, params.W, params.T, params.R,
+                       params.strict, len(pages))).encode())
+        for p in pages:
+            h.update(struct.pack("<IIi", p.shape[0], p.shape[1],
+                                 zlib.crc32(np.packbits(p).tobytes())
+                                 & 0x7FFFFFFF))
+        return h.digest()
 
 
 def _journal_read(path: str, fp: bytes) -> dict[int, bytes]:
@@ -115,14 +119,17 @@ def _journal_read(path: str, fp: bytes) -> dict[int, bytes]:
 
 
 def _journal_append(path: str, fp: bytes, new: dict[int, bytes]) -> None:
-    if not os.path.exists(path):
-        with open(path, "wb") as f:
-            f.write(JOURNAL_MAGIC + struct.pack("<I", len(fp)) + fp)
-    with open(path, "ab") as f:
-        for idx, blob in sorted(new.items()):
-            f.write(struct.pack("<II", idx, len(blob)) + blob)
-        f.flush()
-        os.fsync(f.fileno())
+    """Append a finished batch to the journal and fsync it (span
+    ``journal``)."""
+    with span("journal"):
+        if not os.path.exists(path):
+            with open(path, "wb") as f:
+                f.write(JOURNAL_MAGIC + struct.pack("<I", len(fp)) + fp)
+        with open(path, "ab") as f:
+            for idx, blob in sorted(new.items()):
+                f.write(struct.pack("<II", idx, len(blob)) + blob)
+            f.flush()
+            os.fsync(f.fileno())
 
 
 def encode_archive(pages, params: CodecParams | None = None, *,
@@ -134,36 +141,42 @@ def encode_archive(pages, params: CodecParams | None = None, *,
     checkpoint: journal path; each finished batch is appended, a killed run
     resumes from it, and the archive is byte-identical to an uninterrupted
     one.  The journal is removed on success.  on_progress(n_done_pages) is
-    called after every batch."""
+    called after every batch.  The job is one request (span
+    ``archive_job``); its spans are ``fingerprint``, ``journal`` (each
+    batch's append), each batch's ``stack`` and ``compress.encode_batch``'s,
+    and ``container`` (the offsets and the join)."""
     params = params or CodecParams(codec=8, strict=False)
-    pages = [np.asarray(p, dtype=bool) for p in pages]
-    done: dict[int, bytes] = {}
-    fp = b""
-    if checkpoint:
-        fp = _corpus_fingerprint(pages, params)
-        done = _journal_read(checkpoint, fp)
-    n_done = len(done)
-
-    def after_batch(new: dict[int, bytes]) -> None:
-        nonlocal n_done
+    with span("archive_job"):
+        pages = [np.asarray(p, dtype=bool) for p in pages]
+        done: dict[int, bytes] = {}
+        fp = b""
         if checkpoint:
-            _journal_append(checkpoint, fp, new)
-        n_done += len(new)
-        if on_progress is not None:
-            on_progress(n_done)
+            fp = _corpus_fingerprint(pages, params)
+            done = _journal_read(checkpoint, fp)
+        n_done = len(done)
 
-    blobs = encode_pages(pages, params, batch_size=batch_size, device=device,
-                         done=done, after_batch=after_batch)
-    offsets = np.zeros(len(blobs), dtype=np.uint64)
-    pos = 0
-    for i, b in enumerate(blobs):
-        offsets[i] = pos
-        pos += len(b)
-    out = MAGIC + struct.pack("<I", len(blobs)) + offsets.tobytes() \
-        + b"".join(blobs)
-    if checkpoint and os.path.exists(checkpoint):
-        os.remove(checkpoint)
-    return out
+        def after_batch(new: dict[int, bytes]) -> None:
+            nonlocal n_done
+            if checkpoint:
+                _journal_append(checkpoint, fp, new)
+            n_done += len(new)
+            if on_progress is not None:
+                on_progress(n_done)
+
+        blobs = encode_pages(pages, params, batch_size=batch_size,
+                             device=device, done=done,
+                             after_batch=after_batch)
+        with span("container"):
+            offsets = np.zeros(len(blobs), dtype=np.uint64)
+            pos = 0
+            for i, b in enumerate(blobs):
+                offsets[i] = pos
+                pos += len(b)
+            out = MAGIC + struct.pack("<I", len(blobs)) \
+                + offsets.tobytes() + b"".join(blobs)
+        if checkpoint and os.path.exists(checkpoint):
+            os.remove(checkpoint)
+        return out
 
 
 def page_count(blob: bytes) -> int:

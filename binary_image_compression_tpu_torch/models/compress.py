@@ -66,7 +66,7 @@ from ..ops._cuda import resolve_device
 from ..ops.bitstream import (BitWriter, enum_encode, enum_nbits,
                              golomb_encode, words_to_bytes)
 from ..ops.entropy import GolombCoder
-from ..utils.profiling import PipelineProfile
+from ..utils.profiling import PipelineProfile, count, span
 from .codec import (MEDRLE_CODEC, SCAB_CODEC, WINDOWED_CODECS, CodecParams,
                     _check_W, _encode_medrle, _encode_scab, _encode_windowed,
                     _header, image_crc, scab_stripes)
@@ -263,12 +263,17 @@ def _split_decided(block: np.ndarray) -> dict:
                 residual=np.ascontiguousarray(block[:, 2:]).view(np.uint32))
 
 
-def _pack_decided(out: dict, hdr: bytes, M: int) -> bytes:
-    """Encoder tail: native bic_pack_tiles over the decided records."""
-    res_bits = bitpack.np_unpack(out["residual"], M)
-    return native.pack_tiles(hdr, M, out["mode"], out["inv"],
-                             out["rank"].astype(np.int64), out["idx_len"],
-                             out["weight"], res_bits.astype(np.uint8))
+def _pack_decided(block: np.ndarray, hdr: bytes, M: int) -> bytes:
+    """Encoder tail: one page's int32 [T, 2 + nw] record block split and
+    unpacked on the host (span ``pack.unpack``), then native
+    bic_pack_tiles (``pack.native``)."""
+    with span("pack.unpack"):
+        out = _split_decided(block)
+        res_bits = bitpack.np_unpack(out["residual"], M).astype(np.uint8)
+        rank = out["rank"].astype(np.int64)
+    with span("pack.native"):
+        return native.pack_tiles(hdr, M, out["mode"], out["inv"], rank,
+                                 out["idx_len"], out["weight"], res_bits)
 
 
 def pack_records_plain(out: dict, hdr: bytes, M: int) -> bytes:
@@ -339,13 +344,27 @@ def host_encode(img: np.ndarray, params: CodecParams) -> bytes:
 
 def _upload(pages: np.ndarray, W: int, dev) -> torch.Tensor:
     """Zero-pad bool [B, rows, cols] to the tile grid, pack to uint32 words
-    and upload them as int32 [B, ny*W, nwords(nx*W)]."""
+    (span ``upload.host``) and upload them as int32 [B, ny*W,
+    nwords(nx*W)] (``upload.h2d``, counter ``h2d_bytes``)."""
     B, rows, cols = pages.shape
     ny, nx = -(-rows // W), -(-cols // W)
-    grid = np.zeros((B, ny * W, nx * W), dtype=bool)
-    grid[:, :rows, :cols] = pages
-    packed = bitpack.np_pack(grid).view(np.int32)
-    return torch.from_numpy(packed).to(dev)
+    with span("upload.host"):
+        grid = np.zeros((B, ny * W, nx * W), dtype=bool)
+        grid[:, :rows, :cols] = pages
+        packed = bitpack.np_pack(grid).view(np.int32)
+    with span("upload.h2d"):
+        words = torch.from_numpy(packed).to(dev)
+        count("h2d_bytes", packed.nbytes)
+    return words
+
+
+def _fetch(block: torch.Tensor) -> np.ndarray:
+    """A device result on the host (span ``fetch``, counter
+    ``d2h_bytes``): the copy waits for the work queued before it."""
+    with span("fetch"):
+        out = block.cpu().numpy()
+        count("d2h_bytes", out.nbytes)
+    return out
 
 
 def encode(img: np.ndarray, params: CodecParams | None = None, *,
@@ -361,34 +380,40 @@ def encode(img: np.ndarray, params: CodecParams | None = None, *,
     goes to the native host encoder.  profile: a ``PipelineProfile`` that
     collects the stages ``grid_prep`` (pad, pack, upload),
     ``device_analysis`` (up to and with the fetch) and ``native_pack``
-    (``compress --profile``)."""
+    (``compress --profile``).  The page is one request of the recorder
+    (``utils/profiling``, span ``page``), with the spans ``upload``,
+    ``analysis``, ``fetch`` and ``pack`` under it."""
     prof = profile if profile is not None else PipelineProfile()
     params = params or CodecParams(codec=8, strict=False)
     _check_causal(params, (4, 7, 8))
     _check_W(params)
-    img = np.asarray(img, dtype=bool)
-    if params.R < params.W:
-        return host_encode(img, params)
-    dev = resolve_device(device)
-    rows, cols = img.shape
-    W, T_thresh = params.W, params.resolved_T()
-    kw = dict(W=W, R=params.R, T_thresh=T_thresh, rows=rows, cols=cols)
-    with prof.stage("grid_prep", rows * cols // 8):
-        packed = _upload(img[None], W, dev)
-    if params.codec == 8:
+    with span("page"):
+        img = np.asarray(img, dtype=bool)
+        if params.R < params.W:
+            return host_encode(img, params)
+        dev = resolve_device(device)
+        rows, cols = img.shape
+        W, T_thresh = params.W, params.resolved_T()
+        kw = dict(W=W, R=params.R, T_thresh=T_thresh, rows=rows, cols=cols)
+        with prof.stage("grid_prep", rows * cols // 8), span("upload"):
+            packed = _upload(img[None], W, dev)
+        if params.codec == 8:
+            with prof.stage("device_analysis"):
+                with span("analysis"):
+                    block = encode_analyze_decided(packed, **kw)
+                block = _fetch(block)
+            with prof.stage("native_pack"):
+                return pack_pages(block, img[None], params)[0]
         with prof.stage("device_analysis"):
-            block = encode_analyze_decided(packed, **kw).cpu().numpy()
+            out = fetch_analysis(encode_analyze(
+                bitpack.unpack(packed, -(-cols // W) * W), invert=False,
+                **kw))
         with prof.stage("native_pack"):
-            return pack_pages(block, img[None], params)[0]
-    with prof.stage("device_analysis"):
-        out = fetch_analysis(encode_analyze(
-            bitpack.unpack(packed, -(-cols // W) * W), invert=False, **kw))
-    with prof.stage("native_pack"):
-        hdr = _header(params, rows, cols, image_crc(img))
-        return native.decide_pack(
-            hdr, W * W, params.codec, out["weights4"][0],
-            out["has_cands"][0], out["idx_len"][0], out["inv"][0],
-            out["rank"][0], out["residual4"][0])[0]
+            hdr = _header(params, rows, cols, image_crc(img))
+            return native.decide_pack(
+                hdr, W * W, params.codec, out["weights4"][0],
+                out["has_cands"][0], out["idx_len"][0], out["inv"][0],
+                out["rank"][0], out["residual4"][0])[0]
 
 
 _ANALYSIS_FIELDS = ("rank", "n_cands", "inv", "has_cands", "idx_len")
@@ -440,28 +465,36 @@ def encode_batch(pages: np.ndarray, params: CodecParams | None = None, *,
         return [host_encode(p, params) for p in pages]
     dev = resolve_device(device)
     _, rows, cols = pages.shape
-    block = encode_analyze_decided(
-        _upload(pages, params.W, dev), W=params.W, R=params.R,
-        T_thresh=params.resolved_T(), rows=rows, cols=cols).cpu().numpy()
-    return pack_pages(block, pages, params)
+    with span("upload"):
+        packed = _upload(pages, params.W, dev)
+    with span("analysis"):
+        block = encode_analyze_decided(
+            packed, W=params.W, R=params.R, T_thresh=params.resolved_T(),
+            rows=rows, cols=cols)
+    return pack_pages(_fetch(block), pages, params)
 
 
 def pack_pages(block: np.ndarray, pages: np.ndarray,
                params: CodecParams) -> list[bytes]:
     """Native record packing of a fetched [B, T, 2 + nw] block, one page
-    per host thread."""
+    per host thread (``min(B, os.cpu_count())`` of them).  Spans: ``pack``
+    over the whole, and on the page's thread ``pack.page`` with its
+    ``crc`` (header and ``image_crc``), ``pack.unpack`` and
+    ``pack.native``."""
     B, rows, cols = pages.shape
 
     def build(b):
-        hdr = _header(params, rows, cols, image_crc(pages[b]))
-        return _pack_decided(_split_decided(block[b]), hdr,
-                             params.W * params.W)
+        with span("pack.page", parent=pack):
+            with span("crc"):
+                hdr = _header(params, rows, cols, image_crc(pages[b]))
+            return _pack_decided(block[b], hdr, params.W * params.W)
 
     workers = min(B, os.cpu_count() or 1)
-    if workers <= 1:
-        return [build(b) for b in range(B)]
-    with ThreadPoolExecutor(max_workers=workers) as ex:
-        return list(ex.map(build, range(B)))
+    with span("pack") as pack:
+        if workers <= 1:
+            return [build(b) for b in range(B)]
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            return list(ex.map(build, range(B)))
 
 
 def encode_strict(img: np.ndarray, params: CodecParams | None = None, *,
@@ -527,9 +560,10 @@ def scab_ctx_map(bits: torch.Tensor, *, tmpl: int,
 
 
 def scab_upload(img: np.ndarray, dev) -> torch.Tensor:
-    """The page uploaded as packed words and unpacked on `dev`: bool
-    [rows, cols]."""
-    return bitpack.unpack(_upload(img[None], 1, dev), img.shape[1])[0]
+    """The page uploaded as packed words and unpacked on `dev` (span
+    ``upload``): bool [rows, cols]."""
+    with span("upload"):
+        return bitpack.unpack(_upload(img[None], 1, dev), img.shape[1])[0]
 
 
 def encode_scab(img: np.ndarray, params: CodecParams | None = None, *,
@@ -545,24 +579,29 @@ def encode_scab(img: np.ndarray, params: CodecParams | None = None, *,
         raise ValueError(f"encode_scab takes codec 13, not {params.codec}")
     if entropy not in ("host", "device"):
         raise ValueError(f"entropy={entropy!r}: 'host' or 'device'")
-    img = np.asarray(img, dtype=bool)
-    tmpl, _, stripe_rows = scab_stripes(params, img.shape[0])
-    if entropy == "device":
-        return _encode_scab_device(img, params, tmpl, stripe_rows,
-                                   device=device)
-    bits = scab_upload(img, resolve_device(device))
-    ctx = scab_ctx_map(bits, tmpl=tmpl, stripe_rows=stripe_rows)
-    return _encode_scab(img, params,
-                        ctx_pre=ctx.cpu().numpy().view(np.uint16))
+    with span("page"):
+        img = np.asarray(img, dtype=bool)
+        tmpl, _, stripe_rows = scab_stripes(params, img.shape[0])
+        if entropy == "device":
+            return _encode_scab_device(img, params, tmpl, stripe_rows,
+                                       device=device)
+        bits = scab_upload(img, resolve_device(device))
+        ctx = scab_ctx_map(bits, tmpl=tmpl, stripe_rows=stripe_rows)
+        return _encode_scab(img, params,
+                            ctx_pre=ctx.cpu().numpy().view(np.uint16))
 
 
 def scab_rans_page(bits: torch.Tensor, *, tmpl: int, stripe_rows: int,
                    n_lanes: int = ransdevice.N_LANES_DEFAULT) -> dict:
     """Context map and the mode-2 payload's fields, on the device of
-    `bits` (``ransdevice.rans_page_encode``)."""
-    ctx = scab_ctx_map(bits, tmpl=tmpl, stripe_rows=stripe_rows)
-    return ransdevice.rans_page_encode(bits, ctx, stripe_rows=stripe_rows,
-                                       n_lanes=n_lanes)
+    `bits` (``ransdevice.rans_page_encode``).  Spans: ``rans_fields`` over
+    the whole, ``rans.map`` over the map."""
+    with span("rans_fields"):
+        with span("rans.map"):
+            ctx = scab_ctx_map(bits, tmpl=tmpl, stripe_rows=stripe_rows)
+        return ransdevice.rans_page_encode(bits, ctx,
+                                           stripe_rows=stripe_rows,
+                                           n_lanes=n_lanes)
 
 
 def fetch_rans_fields(out: dict) -> dict:
@@ -573,21 +612,26 @@ def fetch_rans_fields(out: dict) -> dict:
 def fetch_rans_stack(out: dict) -> list[dict]:
     """The mode-2 fields of a stack of P pages on the host, in two copies:
     the small fields in one int64 vector, then the word streams cut to the
-    longest one.  Returns one dict of numpy fields per page."""
+    longest one (span ``fetch``, counter ``d2h_bytes``).  Returns one dict
+    of numpy fields per page."""
     P, S, N = out["states"].shape
     i64 = lambda t: t.reshape(-1).to(torch.int64)
-    small = torch.cat([i64(out["transmit"]), i64(out["q_default"]),
-                       bitpack.from_i32(out["states"]).reshape(-1),
-                       i64(out["bits"]), i64(out["tab_words"]),
-                       i64(out["tab_bits"]), i64(out["n_transmit"])])
-    parts = np.split(small.cpu().numpy(), np.cumsum(
-        [P * ransdevice.PSCALE, P, P * S * N, P * S,
-         P * ransdevice.TABLE_WORDS, P]))
+    with span("fetch"):
+        small = torch.cat([i64(out["transmit"]), i64(out["q_default"]),
+                           bitpack.from_i32(out["states"]).reshape(-1),
+                           i64(out["bits"]), i64(out["tab_words"]),
+                           i64(out["tab_bits"]),
+                           i64(out["n_transmit"])]).cpu().numpy()
+        parts = np.split(small, np.cumsum(
+            [P * ransdevice.PSCALE, P, P * S * N, P * S,
+             P * ransdevice.TABLE_WORDS, P]))
+        nbits = parts[3].reshape(P, S)
+        nw_max = max(1, -(-int(nbits.max()) // 32))
+        words = out["words"][..., :nw_max].cpu().numpy().view(np.uint32)
+        count("d2h_bytes", small.nbytes + words.nbytes)
     transmit = parts[0].astype(bool).reshape(P, -1)
-    states, nbits = parts[2].reshape(P, S, N), parts[3].reshape(P, S)
+    states = parts[2].reshape(P, S, N)
     tab_words = parts[4].reshape(P, -1)
-    nw_max = max(1, -(-int(nbits.max()) // 32))
-    words = out["words"][..., :nw_max].cpu().numpy().view(np.uint32)
     return [dict(transmit=transmit[i], q_default=int(parts[1][i]),
                  states=states[i], bits=nbits[i], tab_words=tab_words[i],
                  tab_bits=int(parts[5][i]), n_transmit=int(parts[6][i]),
@@ -607,12 +651,15 @@ def _encode_scab_device(img, params, tmpl, stripe_rows,
                                          n_lanes=n_lanes))
     body = _serialize_scab_rans(f, tmpl, -(-rows // stripe_rows),
                                 stripe_rows, n_lanes)
-    return _header(params, rows, cols, image_crc(img)) + body
+    with span("crc"):
+        head = _header(params, rows, cols, image_crc(img))
+    return head + body
 
 
 def _serialize_scab_rans(f: dict, tmpl, n_stripes, stripe_rows,
                          n_lanes) -> bytes:
-    """The mode-2 body from the fetched fields (after the BIC1 header):
+    """The mode-2 body from the fetched fields (after the BIC1 header;
+    span ``serialize``):
 
       u8 tmpl | u8 mode=2 | u16 n_stripes | i32 stripe_rows
       u8 n_lanes | u8 q_default | u16 n_transmit
@@ -624,35 +671,38 @@ def _serialize_scab_rans(f: dict, tmpl, n_stripes, stripe_rows,
       per stripe: n_lanes x u32 LE initial decoder states, then the u16
         big-endian rANS word stream
     """
-    ids = np.flatnonzero(np.asarray(f["transmit"], bool))
-    gaps = np.diff(np.concatenate([[-1], ids])) - 1
-    # Rice bits of the gaps for each k; the first smallest wins
-    nbits = [(k + 1) * gaps.size + int((gaps >> k).sum()) for k in range(13)]
-    best_k = int(np.argmin(nbits))
-    if ids.size and -(-nbits[best_k] // 8) < 512:
-        bm_mode, rice_k = 1, best_k
-        bw = BitWriter()
-        for g in gaps:
-            golomb_encode(bw, int(g), rice_k)
-        bm_bytes = bw.getvalue()
-    else:
-        bm_mode, rice_k = 0, 0
-        bm_bytes = np.packbits(np.asarray(f["transmit"], bool)).tobytes()
-    body = bytearray()
-    body += struct.pack("<BBHi", tmpl, 2, n_stripes, stripe_rows)
-    body += struct.pack("<BBH", n_lanes, int(f["q_default"]),
-                        int(f["n_transmit"]))
-    body += struct.pack("<BBH", bm_mode, rice_k, len(bm_bytes))
-    body += bm_bytes
-    body += words_to_bytes(f["tab_words"], int(f["tab_bits"]))
-    streams = [np.asarray(f["states"][s], "<u4").tobytes()
-               + words_to_bytes(f["words"][s], int(f["bits"][s]))
-               for s in range(n_stripes)]
-    for sb in streams:
-        body += struct.pack("<I", len(sb))
-    for sb in streams:
-        body += sb
-    return bytes(body)
+    with span("serialize"):
+        ids = np.flatnonzero(np.asarray(f["transmit"], bool))
+        gaps = np.diff(np.concatenate([[-1], ids])) - 1
+        # Rice bits of the gaps for each k; the first smallest wins
+        nbits = [(k + 1) * gaps.size + int((gaps >> k).sum())
+                 for k in range(13)]
+        best_k = int(np.argmin(nbits))
+        if ids.size and -(-nbits[best_k] // 8) < 512:
+            bm_mode, rice_k = 1, best_k
+            bw = BitWriter()
+            for g in gaps:
+                golomb_encode(bw, int(g), rice_k)
+            bm_bytes = bw.getvalue()
+        else:
+            bm_mode, rice_k = 0, 0
+            bm_bytes = np.packbits(np.asarray(f["transmit"],
+                                              bool)).tobytes()
+        body = bytearray()
+        body += struct.pack("<BBHi", tmpl, 2, n_stripes, stripe_rows)
+        body += struct.pack("<BBH", n_lanes, int(f["q_default"]),
+                            int(f["n_transmit"]))
+        body += struct.pack("<BBH", bm_mode, rice_k, len(bm_bytes))
+        body += bm_bytes
+        body += words_to_bytes(f["tab_words"], int(f["tab_bits"]))
+        streams = [np.asarray(f["states"][s], "<u4").tobytes()
+                   + words_to_bytes(f["words"][s], int(f["bits"][s]))
+                   for s in range(n_stripes)]
+        for sb in streams:
+            body += struct.pack("<I", len(sb))
+        for sb in streams:
+            body += sb
+        return bytes(body)
 
 
 # ---------------------------------------------------------------------------

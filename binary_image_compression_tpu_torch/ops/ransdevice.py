@@ -41,6 +41,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import _cuda, bitpack
 from .bitpack import U32, popcount
 from .bitstream import pack_varlen
@@ -401,13 +402,20 @@ def rans_stack_encode(bits, ctx, *, stripe_rows: int,
     bits 0/1 [P, rows, cols]; ctx [P, rows, cols] from
     ``compress.scab_ctx_map``.  Returns transmit [P, 4096], q_default [P],
     states [P, S, N], words [P, S, Wcap], bits [P, S] (stream bit counts),
-    tab_words [P, 768], tab_bits [P] and n_transmit [P], as tensors."""
-    ones, total = count_contexts(ctx, bits)
-    q, transmit, q_def, p_used = build_table(ones, total)
-    states, words, nbits = rans_encode(
-        bits, ctx.to(torch.int16), p_used.to(torch.int16),
-        stripe_rows=stripe_rows, n_lanes=n_lanes)
-    tab_words, tab_bits = pack_table(q, transmit)
+    tab_words [P, 768], tab_bits [P] and n_transmit [P], as tensors.
+    Spans: ``rans.counts`` (``bincount`` sizes its output from the
+    largest key, so the host waits there for the work queued before it),
+    ``rans.table``, ``rans.k7`` and ``rans.pack_table``."""
+    with span("rans.counts"):
+        ones, total = count_contexts(ctx, bits)
+    with span("rans.table"):
+        q, transmit, q_def, p_used = build_table(ones, total)
+    with span("rans.k7"):
+        states, words, nbits = rans_encode(
+            bits, ctx.to(torch.int16), p_used.to(torch.int16),
+            stripe_rows=stripe_rows, n_lanes=n_lanes)
+    with span("rans.pack_table"):
+        tab_words, tab_bits = pack_table(q, transmit)
     return dict(transmit=transmit, q_default=q_def, states=states,
                 words=words, bits=nbits, tab_words=tab_words,
                 tab_bits=tab_bits, n_transmit=transmit.sum(-1))

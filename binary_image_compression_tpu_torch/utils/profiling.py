@@ -1,20 +1,145 @@
-"""Stage timers and device traces.
+"""Spans, counters and stage timers.
 
 Counterpart of ``binary_image_compression_tpu/utils/profiling.py``:
 ``StageStats`` and ``PipelineProfile`` (wall clock and bytes per named
-stage, ``compress --profile``) on the host clock, and ``device_trace``,
-which records a ``torch.profiler`` trace of the CPU and the card and writes
-it as a Chrome trace.  A stage that ends in a device-to-host fetch (a
-``.cpu()`` of the device's result) includes the device's work, as JAX's
-``device_get`` does.
+stage, ``compress --profile``).  JAX's ``device_trace`` (a
+``jax.profiler`` scope) has no counterpart: ``torch.profiler`` is used as
+it is, and the recorder below puts the program's own spans on its clock.
+
+The recorder (one a process, off by default; ``record(True)`` switches it
+on, ``take()`` returns what it kept and empties it):
+
+  * ``span(name)``: a context manager that times its block.  A kept
+    ``Span`` has its name, its start and end on ``time.time_ns()`` (the
+    clock of ``torch.profiler``'s events, so a span encloses the events of
+    the work it enqueues or waits for), its parent (the span open on the
+    same thread, or the one passed as ``parent``), a request id and its
+    thread.  A span with no parent starts a request: the encoders open
+    ``page`` (one page of ``compress.encode`` or ``encode_scab``) and
+    ``archive_job`` (one ``archive.encode_archive``), and every span under
+    one shares its id.  Work handed to another thread passes the span it
+    belongs to as ``parent`` (a thread's own stack would lose it).
+  * ``count(name, n)``: (name, n, time.time_ns(), the open span), kept
+    beside the spans.
+
+Off, ``span()`` returns one shared no-op after a single flag test and
+``count()`` keeps nothing.  Neither ever synchronises the device, reads a
+tensor's value or copies: a span around a host wait measures a wait that
+the program makes anyway.  A ``PipelineProfile`` stage is timed by the
+same ``Span``, kept by the profile's ``StageStats`` in place of the
+recorder, so its stages are timed whether the recorder is on or not.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
+import itertools
+import threading
 import time
 from dataclasses import dataclass, field
+
+
+class Span:
+    """One timed block: [start, end) on ``time.time_ns()``."""
+
+    __slots__ = ("name", "start", "end", "parent", "request", "thread",
+                 "_rec")
+
+    def __init__(self, name: str, parent: "Span | None" = None,
+                 request: int = 0, rec: "Recorder | None" = None):
+        self.name, self.parent, self.request = name, parent, request
+        self.start = self.end = 0
+        self.thread = 0
+        self._rec = rec
+
+    def __enter__(self) -> "Span":
+        self.thread = threading.get_ident()
+        if self._rec is not None:
+            self._rec._stack().append(self)
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.end = time.time_ns()
+        if self._rec is not None:
+            self._rec._keep(self)
+
+    @property
+    def seconds(self) -> float:
+        return (self.end - self.start) / 1e9
+
+
+class _Off:
+    """The recorder's span while it is off: does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_Off":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
+OFF = _Off()
+
+
+class Recorder:
+    """Spans and counts of every thread of the process (see the module's
+    docstring)."""
+
+    def __init__(self):
+        self.on = False
+        self.spans: list[Span] = []
+        self.counts: list[tuple] = []     # (name, n, time_ns, open span)
+        self._local = threading.local()
+        self._requests = itertools.count(1)
+
+    def record(self, on: bool = True) -> None:
+        self.on = bool(on)
+
+    def take(self) -> tuple[list[Span], list[tuple]]:
+        """(spans in the order they ended, counts) kept so far; the
+        recorder keeps nothing of them."""
+        spans, counts = self.spans, self.counts
+        self.spans, self.counts = [], []
+        return spans, counts
+
+    def span(self, name: str, parent: Span | None = None):
+        if not self.on:
+            return OFF
+        if not isinstance(parent, Span):
+            parent = self.current()
+        request = parent.request if parent else next(self._requests)
+        return Span(name, parent, request, self)
+
+    def current(self) -> Span | None:
+        """The innermost span open on this thread (None while off)."""
+        stack = self._stack() if self.on else None
+        return stack[-1] if stack else None
+
+    def count(self, name: str, n: int) -> None:
+        if self.on:
+            self.counts.append((name, int(n), time.time_ns(),
+                                self.current()))
+
+    def _stack(self) -> list[Span]:
+        try:
+            return self._local.stack
+        except AttributeError:
+            self._local.stack = []
+            return self._local.stack
+
+    def _keep(self, sp: Span) -> None:
+        self._stack().remove(sp)
+        self.spans.append(sp)
+
+
+RECORDER = Recorder()
+record = RECORDER.record
+take = RECORDER.take
+span = RECORDER.span
+count = RECORDER.count
 
 
 @dataclass
@@ -35,11 +160,12 @@ class PipelineProfile:
     @contextlib.contextmanager
     def stage(self, name: str, nbytes: int = 0):
         st = self.stages.setdefault(name, StageStats())
-        t0 = time.perf_counter()
+        sp = Span(name)
         try:
-            yield st
+            with sp:
+                yield st
         finally:
-            st.seconds += time.perf_counter() - t0
+            st.seconds += sp.seconds
             st.bytes_moved += nbytes
             st.calls += 1
 
@@ -49,21 +175,3 @@ class PipelineProfile:
             lines.append(f"{name:24s} {st.seconds*1e3:9.2f} ms  "
                          f"{st.mbps:9.1f} MB/s  x{st.calls}")
         return "\n".join(lines)
-
-
-@contextlib.contextmanager
-def device_trace(logdir: str):
-    """Record a ``torch.profiler`` trace of the block (the card's kernels
-    too where CUDA is available) and write it to
-    ``<logdir>/trace.json`` (open it in chrome://tracing or Perfetto).
-    Yields the profiler, whose ``key_averages()`` tables the block's
-    operators."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

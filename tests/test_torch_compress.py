@@ -62,7 +62,7 @@ def test_encode_analyze_decided_block_matches_jax():
     hdr = codec._header(_params(W, R)[0], 64, 64, codec.image_crc(img))
     out = compress._split_decided(got[0].numpy())
     assert compress.pack_records_plain(out, hdr, W * W) == \
-        compress._pack_decided(out, hdr, W * W)
+        compress._pack_decided(got[0].numpy(), hdr, W * W)
 
 
 @pytest.mark.parametrize("image,W,R", [("text64.pbm", 8, 32),

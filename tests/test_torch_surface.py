@@ -82,6 +82,9 @@ ALLOWED = {
     ("utils/roofline.py", "SELECTION_LANE_OPS"): "the v5e VPU op count of "
         "the selection",
     ("utils/roofline.py", "utilization"): "v5e utilization",
+    ("utils/profiling.py", "device_trace"): "a jax.profiler scope; the "
+        "port uses torch.profiler as it is, and its span recorder "
+        "(profiling.span) is on the profiler's clock",
     ("utils/roofline.py", "field_packing"): "the v5e lane packing of fields",
     ("utils/roofline.py", "fused_search_model"): "the v5e model of K1",
 }

@@ -1,10 +1,9 @@
 """The port's utils: ``galois`` against JAX's ``GF``, checkpoints that
-cross between the packages in both directions, ``PipelineProfile`` and
-``device_trace`` (on the CPU here), and ``pnm.write_pbm_packed`` against
-JAX's file."""
+cross between the packages in both directions, ``PipelineProfile``, and
+``pnm.write_pbm_packed`` against JAX's file (the span recorder:
+``test_torch_spans.py``)."""
 
 import io
-import json
 import os
 
 import numpy as np
@@ -117,16 +116,6 @@ def test_pipeline_profile_stages():
         with prof.stage("fails"):
             raise RuntimeError
     assert prof.stages["fails"].calls == 1
-
-
-def test_device_trace_writes_a_chrome_trace(tmp_path):
-    with profiling.device_trace(str(tmp_path)) as prof:
-        torch.ones(64, 64).matmul(torch.ones(64, 64))
-    with open(tmp_path / "trace.json") as f:
-        trace = json.load(f)
-    assert any("matmul" in e.get("name", "")
-               for e in trace["traceEvents"])
-    assert any("matmul" in e.key for e in prof.key_averages())
 
 
 @pytest.mark.parametrize("rows,cols", [(1, 1), (101, 237), (7, 64),
