@@ -23,6 +23,8 @@ utils/``):
 * ``ops/packed_dist``     K5, K6 and the BSVD pursuit kernel
 * ``ops/ransdevice``      kernel K7: codec 13's interleaved-rANS encode
 * ``ops/egdevice``        kernel K8: codec 10's adaptive exp-Golomb coder
+* ``ops/recpack``         kernel K9: codec 8's tile records packed into the
+                          payload on the device
 * ``ops/_cuda``           builds ``csrc/*.cu`` with nvcc and loads them
 * ``models/codec``        BIC1/BICG/BICC containers, every codec on the host
 * ``models/compress``     the device encoders: codecs 4/7/8 causal

@@ -20,8 +20,11 @@ Causal mode, per batch of same-sized pages, on the device:
   5. the chosen residual plus a packed header word, one int32 [B, T, 2+nw]
      block.
 Strict mode, one page: kernel K3 (ops/strict) runs the whole residual-
-substitution chain and yields the same record block.  Then per page on the
-host, native ``bic_pack_tiles`` writes the stream.  Codecs 4 and 7 (causal,
+substitution chain and yields the same record block.  Then ``pack_pages``
+writes the streams: where the block lies on a CUDA device and M = W*W <=
+256, kernel K9 (ops/recpack) packs every page's records on the device and
+the host fetches the payloads; else per page on the host, native
+``bic_pack_tiles``.  Codecs 4 and 7 (causal,
 ``encode``) take steps 1-3 with the complement trick off, the analysis dict
 is fetched in one copy, and native ``bic_decide_pack`` decides the modes
 and packs the records on the host, as in JAX (K2 is not on their path).
@@ -61,7 +64,7 @@ import torch
 
 from .. import native
 from ..ops import (bitpack, decide, egdevice, fused_search, predict,
-                   ransdevice, search, select_windows, strict)
+                   ransdevice, recpack, search, select_windows, strict)
 from ..ops._cuda import resolve_device
 from ..ops.bitstream import (BitWriter, enum_encode, enum_nbits,
                              golomb_encode, words_to_bytes)
@@ -370,17 +373,19 @@ def _fetch(block: torch.Tensor) -> np.ndarray:
 def encode(img: np.ndarray, params: CodecParams | None = None, *,
            device="cuda", profile: PipelineProfile | None = None) -> bytes:
     """Encode one page with codec 4, 7 or 8 in causal mode: the analysis on
-    `device`, the record packing on the host.  Byte-identical to the host
+    `device`, the record packing on the host or, for codec 8 on a card at
+    W <= 16, on the card (``pack_pages``).  Byte-identical to the host
     encoder.
 
-    Codec 8 decides its modes on the device (K2) and fetches the record
-    block; codecs 4 and 7 fetch the analysis dict (``fetch_analysis``) and
-    decide and pack in native ``bic_decide_pack`` (JAX ``_assemble``
-    :448).  R < W
-    goes to the native host encoder.  profile: a ``PipelineProfile`` that
-    collects the stages ``grid_prep`` (pad, pack, upload),
-    ``device_analysis`` (up to and with the fetch) and ``native_pack``
-    (``compress --profile``).  The page is one request of the recorder
+    Codec 8 decides its modes on the device (K2) and hands the record
+    block to ``pack_pages``; codecs 4 and 7 fetch the analysis dict
+    (``fetch_analysis``) and decide and pack in native ``bic_decide_pack``
+    (JAX ``_assemble`` :448).  R < W goes to the native host encoder.
+    profile: a ``PipelineProfile`` that collects the stages ``grid_prep``
+    (pad, pack, upload), ``device_analysis`` (codec 8: the analysis
+    enqueued; codecs 4/7: up to and with the fetch) and ``native_pack``
+    (codec 8: ``pack_pages``, whose fetch waits for the card; ``compress
+    --profile``).  The page is one request of the recorder
     (``utils/profiling``, span ``page``), with the spans ``upload``,
     ``analysis``, ``fetch`` and ``pack`` under it."""
     prof = profile if profile is not None else PipelineProfile()
@@ -398,10 +403,8 @@ def encode(img: np.ndarray, params: CodecParams | None = None, *,
         with prof.stage("grid_prep", rows * cols // 8), span("upload"):
             packed = _upload(img[None], W, dev)
         if params.codec == 8:
-            with prof.stage("device_analysis"):
-                with span("analysis"):
-                    block = encode_analyze_decided(packed, **kw)
-                block = _fetch(block)
+            with prof.stage("device_analysis"), span("analysis"):
+                block = encode_analyze_decided(packed, **kw)
             with prof.stage("native_pack"):
                 return pack_pages(block, img[None], params)[0]
         with prof.stage("device_analysis"):
@@ -455,8 +458,9 @@ def split_analysis(block: np.ndarray) -> dict:
 def encode_batch(pages: np.ndarray, params: CodecParams | None = None, *,
                  device="cuda") -> list[bytes]:
     """Encode same-sized pages bool [B, rows, cols] with codec 8: one K1 and
-    one K2 launch for the whole batch, then the native pack per page on
-    host threads (JAX's ``encode_batch`` takes codec 8 only too)."""
+    one K2 launch for the whole batch, then ``pack_pages`` (on the card,
+    one K9 launch for the batch; JAX's ``encode_batch`` takes codec 8 only
+    too)."""
     params = params or CodecParams(codec=8, strict=False)
     _check_causal(params, (8,))
     _check_W(params)
@@ -471,30 +475,73 @@ def encode_batch(pages: np.ndarray, params: CodecParams | None = None, *,
         block = encode_analyze_decided(
             packed, W=params.W, R=params.R, T_thresh=params.resolved_T(),
             rows=rows, cols=cols)
-    return pack_pages(_fetch(block), pages, params)
+    return pack_pages(block, pages, params)
 
 
-def pack_pages(block: np.ndarray, pages: np.ndarray,
+def pack_pages(block, pages: np.ndarray,
                params: CodecParams) -> list[bytes]:
-    """Native record packing of a fetched [B, T, 2 + nw] block, one page
-    per host thread (``min(B, os.cpu_count())`` of them).  Spans: ``pack``
-    over the whole, and on the page's thread ``pack.page`` with its
-    ``crc`` (header and ``image_crc``), ``pack.unpack`` and
-    ``pack.native``."""
+    """Each page's stream from a decided [B, T, 2 + nw] record block: a
+    tensor where the analysis left it, or an array on the host.
+
+    The route follows the block.  On a CUDA device with M = W*W <=
+    ``recpack.MAX_M`` (W <= 16), kernel K9 packs every page in one launch
+    and the host fetches the bit counts and the payload words used
+    (``_pack_device``).  Else the block is fetched (``_fetch``, a tensor)
+    and native ``bic_pack_tiles`` packs one page per host thread
+    (``min(B, os.cpu_count())`` of them; ``_pack_decided``).  Counters
+    ``pack_pages_device`` / ``pack_pages_host``: the pages each route
+    packs.  Spans: ``pack`` over the whole, and on the page's thread
+    ``pack.page`` with its ``crc`` (header and ``image_crc``) and, on the
+    host route, ``pack.unpack`` and ``pack.native``."""
     B, rows, cols = pages.shape
+    M = params.W * params.W
+
+    def header(b):
+        with span("crc"):
+            return _header(params, rows, cols, image_crc(pages[b]))
+
+    def page_header(b):
+        with span("pack.page", parent=pack):
+            return header(b)
 
     def build(b):
         with span("pack.page", parent=pack):
-            with span("crc"):
-                hdr = _header(params, rows, cols, image_crc(pages[b]))
-            return _pack_decided(block[b], hdr, params.W * params.W)
+            return _pack_decided(host[b], header(b), M)
 
-    workers = min(B, os.cpu_count() or 1)
     with span("pack") as pack:
-        if workers <= 1:
-            return [build(b) for b in range(B)]
-        with ThreadPoolExecutor(max_workers=workers) as ex:
-            return list(ex.map(build, range(B)))
+        if (isinstance(block, torch.Tensor) and block.is_cuda
+                and M <= recpack.MAX_M):
+            count("pack_pages_device", B)
+            return _pack_device(block, M, page_header)
+        count("pack_pages_host", B)
+        host = _fetch(block) if isinstance(block, torch.Tensor) else block
+        return _on_threads(build, B)
+
+
+def _on_threads(fn, B: int) -> list:
+    """[fn(b) for b < B], on ``min(B, os.cpu_count())`` host threads."""
+    workers = min(B, os.cpu_count() or 1)
+    if workers <= 1:
+        return [fn(b) for b in range(B)]
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        return list(ex.map(fn, range(B)))
+
+
+def _pack_device(block: torch.Tensor, M: int, header) -> list[bytes]:
+    """The CUDA route of ``pack_pages``: K9 enqueued, the pages' headers
+    and CRCs on host threads while the card works, then the bit counts and
+    the payload words used fetched (``_fetch``: the first waits for the
+    card), each page its header and payload bytes."""
+    words, nbits = recpack.pack_records(block.contiguous(), M)
+    hdrs = _on_threads(header, block.shape[0])
+    bits = _fetch(nbits)
+    if (bits < 0).any():
+        raise ValueError(f"record block: a weight outside [0, {M}] on "
+                         f"page(s) {np.flatnonzero(bits < 0).tolist()}")
+    starts, sizes, used = recpack.page_layout(bits)
+    payload = _fetch(words[:used]).view(np.uint8)
+    return [h + payload[s:s + n].tobytes()
+            for h, s, n in zip(hdrs, starts, sizes)]
 
 
 def encode_strict(img: np.ndarray, params: CodecParams | None = None, *,
@@ -522,7 +569,7 @@ def encode_strict(img: np.ndarray, params: CodecParams | None = None, *,
     block = _record_block(c["mode"], c["inv"], c["k_used"], c["idx_len"],
                           c["weight"], c["rank"],
                           bitpack.fields_to_words(fields, W))
-    return pack_pages(block[None].cpu().numpy(), img[None], params)[0]
+    return pack_pages(block[None], img[None], params)[0]
 
 
 # (dr, dc, bit) per template: bit `bit` of a pixel's context is the pixel at

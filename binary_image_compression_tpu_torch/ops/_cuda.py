@@ -131,6 +131,8 @@ def _declare(lib) -> None:
     lib.bic_rans_encode.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.bic_eg_encode.restype = i
     lib.bic_eg_encode.argtypes = [p] * 5 + [i] * 5 + [ctypes.c_longlong, p]
+    lib.bic_pack_records.restype = i
+    lib.bic_pack_records.argtypes = [p] * 8 + [i] * 4 + [p]
 
 
 def resolve_device(device):

@@ -34,6 +34,10 @@ its chain floor, the steps times the least latency of one step's
 dependent instructions on one lane (``RANS_STEP_DEPENDENT_OPS`` of them,
 ``ALU_DEPENDENT_CLOCKS`` each, at the boost clock).
 
+K9, codec 8's record pack, reads the decided record block and writes the
+payload; ``k9_bytes`` counts both once (its binomial table is a constant
+the work could do without, so it is not counted).
+
 K8, codec 10's adaptive exp-Golomb coder, reads a packed residual plane
 and writes its payload; the order of the runs is a composition of 32-state
 maps, whose least chain is a scan of ceil(log2(runs)) levels, each
@@ -204,3 +208,10 @@ def eg_work(n_pixels: int, n_runs: int, payload_bits: int,
     floor_ms = (levels * EG_COMPOSE_DEPENDENT_OPS * ALU_DEPENDENT_CLOCKS
                 / H100_CLOCK_HZ * 1e3)
     return nbytes, floor_ms
+
+
+def k9_bytes(B: int, T: int, nw: int, payload_words: int) -> int:
+    """K9 on B pages of T tiles: the int32 [B, T, 2 + nw] record block read
+    once; the payload's words and two int64 a page (its bit count and
+    first word) written once."""
+    return 4 * B * T * (2 + nw) + 4 * payload_words + 16 * B

@@ -15,8 +15,11 @@ from empty to full, odd widths, both first-run cases, run counts at each
 rung of the capacity ladder that sizes its plain version's run array, a
 single one at the last pixel, ones only in the first and last words,
 chunks of 512 ones, the whole stacks of the bench page, a letter page and
-a noisy page, and a color page's 24 planes) against its plain PyTorch
-version on the card, then
+a noisy page, and a color page's 24 planes, and K9, codec 8's record pack,
+on doc512's blocks at W = 16 and 8, a fax page, 32 fax pages in one
+launch (also against native ``bic_pack_tiles``) and random blocks over
+the fields' whole ranges) against its plain PyTorch version on the card,
+then
 drives the port's paths, each with
 the launch counts reset just before it and read just after: the causal
 encode (one 512x512 page, then a 64-page corpus through the archive
@@ -72,7 +75,8 @@ encode on the CPU, codec 13's host-entropy streams against the native coder's ow
 context scan, and each is round-tripped; stages and kernels are timed with CUDA
 events (K1's, K2's, K3's and K4's kernels also by torch.profiler's device
 times; the W = 16 and W = 64 encodes split into stages),
-K7 also at 1, 8 and 32 pages a launch and in clocks a step, the
+K7 also at 1, 8 and 32 pages a launch and in clocks a step, K9 at a fax
+page and 32 fax pages beside the host's native pack, the
 grayscale stages (MED, K8 kernel by kernel, the K7 stack, fetches) and
 ``encode_pgm`` end to end per backend,
 and each kernel's time is printed beside its least time on the card
@@ -1614,6 +1618,8 @@ def stage_times(compress, fs, bitpack, codec, pnm, dev, gpu):
         bnp = block.cpu().numpy()
         st["native pack"] = host_ms(
             lambda: compress.pack_pages(bnp, pages, p), reps)
+        st["K9 pack (card route)"] = host_ms(
+            lambda: compress.pack_pages(block, pages, p), reps)
         st["end to end (encode_batch)"] = host_ms(
             lambda: compress.encode_batch(pages, p, device="cuda"), 3)
         parts = ", ".join(f"{k} {v:.3f} ms" for k, v in st.items())
@@ -1622,6 +1628,129 @@ def stage_times(compress, fs, bitpack, codec, pnm, dev, gpu):
             f"{B * 1e3 / st['end to end (encode_batch)']:.1f} pages/s "
             f"[{gpu}]")
     return img, sel, out
+
+
+def fax_pages(pnm, B: int) -> np.ndarray:
+    """B fax pages (1,728 x 2,376, ITU-T T.4 fine A4): doc512 tiled, each
+    after the first rolled by offsets from a fixed seed."""
+    doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
+    page = np.tile(doc, (5, 4))[:2376, :1728]
+    rs = np.random.RandomState(20)
+    return np.stack([page] + [np.roll(page, (rs.randint(2376),
+                                             rs.randint(1728)), axis=(0, 1))
+                              for _ in range(B - 1)])
+
+
+def record_block(compress, pages, p, dev) -> torch.Tensor:
+    """The card's decided record block of same-sized pages."""
+    B, rows, cols = pages.shape
+    return compress.encode_analyze_decided(
+        compress._upload(pages, p.W, dev), W=p.W, R=p.R,
+        T_thresh=p.resolved_T(), rows=rows, cols=cols)
+
+
+def random_records(bitpack, compress, B, T, W, seed, dev) -> torch.Tensor:
+    """A record block of random fields over their whole ranges (k_used 0-31,
+    idx_len 0-63, weights 0..M with each end a tenth of the tiles, every
+    mode), each residual of exactly its weight."""
+    M = W * W
+    rs = np.random.RandomState(seed)
+    w = np.where(rs.rand(B, T) < 0.1, rs.choice([0, M], (B, T)),
+                 rs.randint(0, M + 1, (B, T)))
+    bits = np.argsort(rs.rand(B, T, M), axis=-1) < w[..., None]
+    il = rs.randint(0, 64, (B, T))
+    t = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int64))
+    return compress._record_block(
+        t(rs.randint(0, 4, (B, T))), t(rs.randint(0, 2, (B, T))),
+        t(rs.randint(0, 32, (B, T))), t(il), t(w),
+        t(rs.randint(0, 2 ** 31 - 1, (B, T))),
+        bitpack.pack(t(bits))).contiguous().to(dev)
+
+
+def check_k9(rp, compress, bitpack, codec, pnm, _cuda, dev) -> int:
+    """K9 (``recpack.pack_records``) against its plain version on the card,
+    words and bit counts, and the real blocks' pages against native
+    ``bic_pack_tiles``: doc512 at W = 16 and 8, a fax page, 32 fax pages in
+    one launch, and random blocks over the fields' whole ranges at W = 16,
+    8, 12 and 5 (a block of 16,500 tiles a page: two chunks of the
+    offsets' scan).  Returns the mismatched words and pages (0)."""
+    doc = pnm.read_pbm(os.path.join(FIXTURES, "doc512.pbm"))
+    cases = []
+    for W in (16, 8):
+        p = codec.CodecParams(codec=8, W=W, R=128, strict=False)
+        cases.append((f"doc512 W={W}", W, record_block(compress, doc[None],
+                                                       p, dev), True))
+    p16 = codec.CodecParams(codec=8, W=16, R=128, strict=False)
+    fax = fax_pages(pnm, 32)
+    cases.append(("fax page", 16, record_block(compress, fax[:1], p16, dev),
+                  True))
+    cases.append(("32 fax pages", 16, record_block(compress, fax, p16, dev),
+                  True))
+    for W, B, T in ((16, 2, 16500), (8, 3, 1001), (12, 2, 777), (5, 4, 333)):
+        cases.append((f"random W={W} {B}x{T}", W,
+                      random_records(bitpack, compress, B, T, W, W, dev),
+                      False))
+    worst = 0
+    for name, W, block, real in cases:
+        M = W * W
+        before = _cuda.launches["pack_records"]
+        words, nbits = rp.pack_records(block, M)
+        torch.cuda.synchronize()
+        if _cuda.launches["pack_records"] != before + 1:
+            raise AssertionError(f"K9 {name}: not one launch")
+        want_w, want_n = rp.pack_records_plain(block, M)
+        bad = int((words != want_w).sum()) + int((nbits != want_n).sum())
+        if real:
+            starts, sizes, _ = rp.page_layout(nbits.cpu())
+            buf = words.cpu().numpy().view(np.uint8)
+            host = block.cpu().numpy()
+            bad += sum(buf[s:s + n].tobytes()
+                       != compress._pack_decided(host[b], b"", M)
+                       for b, (s, n) in enumerate(zip(starts, sizes)))
+        log(f"K9 {name}: {tuple(block.shape)} -> {int(nbits.sum())} bits, "
+            f"mismatches {bad}" + (" (words, counts and pages vs native)"
+                                   if real else " (words and counts)"))
+        worst = max(worst, bad)
+    if worst:
+        raise AssertionError(f"K9 differs from its plain version: {worst}")
+    return worst
+
+
+def k9_times(rp, compress, codec, roofline, pnm, dev, gpu) -> dict:
+    """K9 at a fax page and at 32 fax pages: per launch (CUDA events: the
+    two zero fills and both kernels), its kernels' device time
+    (torch.profiler), the bound (``roofline.k9_bytes``), the plain version
+    on the card; and the pack stage both ways: ``pack_pages`` of the
+    fetched block (native, host threads) and of the card's block (K9 and
+    the fetches).  Returns each size's kernels-line figures."""
+    p = codec.CodecParams(codec=8, W=16, R=128, strict=False)
+    fax = fax_pages(pnm, 32)
+    figures = {}
+    for B in (1, 32):
+        pages = fax[:B]
+        block = record_block(compress, pages, p, dev)
+        _, T, C = block.shape
+        call = lambda: rp.pack_records(block, 256)
+        k9 = cuda_ms(call, 20)
+        parts = device_split(call, ("k9_", "fill", "Fill"), 20)
+        k9d = sum(v for k, v in parts.items() if "k9_" in k) or None
+        plain = cuda_ms(lambda: rp.pack_records_plain(block, 256), 1)
+        nbits = call()[1].cpu()
+        used = rp.page_layout(nbits)[2]
+        nbytes = roofline.k9_bytes(B, T, C - 2, used)
+        bound = roofline.bound_ms(nbytes=nbytes)
+        bnp = block.cpu().numpy()
+        host = host_ms(lambda: compress.pack_pages(bnp, pages, p), 3)
+        card_route = host_ms(lambda: compress.pack_pages(block, pages, p), 10)
+        log(f"K9 {B} fax page(s) [{B}, {T}, {C}]: {k9:.4f} ms per launch "
+            f"(events), device {nd(k9d)} (torch.profiler: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+            + f" ms); bound {bound[0]:.6f} ms ({bound[1]}: {nbytes} B, "
+            f"payload {int(nbits.sum())} bits); plain {plain:.3f} ms; "
+            f"pack_pages: host route {host:.3f} ms (block fetched before), "
+            f"card route {card_route:.3f} ms (K9, fetches, headers) [{gpu}]")
+        figures[B] = (k9, plain, bound, None, k9d)
+    return figures
 
 
 def plane_by_conv(fs, img, W: int, He: int):
@@ -2466,6 +2595,7 @@ def main() -> int:
     from binary_image_compression_tpu_torch.ops import fused_search as fs
     from binary_image_compression_tpu_torch.ops import packed_dist as pd
     from binary_image_compression_tpu_torch.ops import ransdevice as rd
+    from binary_image_compression_tpu_torch.ops import recpack as rp
     from binary_image_compression_tpu_torch.ops import search
     from binary_image_compression_tpu_torch.ops import select_windows as sw
     from binary_image_compression_tpu_torch.ops import strict as st
@@ -2503,17 +2633,20 @@ def main() -> int:
     err_p, letter = check_pursuit(pd, bsvd, dev)
     err7 = check_k7(rd, compress, codec, pnm, dev)
     err8 = check_k8(eg, compress, bitplanes, pnm, dev)
+    err9 = check_k9(rp, compress, bitpack, codec, pnm, _cuda, dev)
 
     causal = drive("causal", lambda: main_path(compress, archive, codec,
                                                native, pnm),
                    _cuda, ("field_plane", "fused_search_select",
-                           "decide_modes"))
+                           "decide_modes", "pack_records"))
     strict_c = drive("strict", lambda: strict_path(compress, codec, native,
                                                    pnm),
-                     _cuda, ("strict_analyze",))
+                     _cuda, ("strict_analyze", "pack_records"))
     banded = drive("banded", lambda: no_maps_on_card(
         search, lambda: banded_path(compress, codec, native, pnm)),
                    _cuda, ("banded_plane", "select_windows", "decide_modes"))
+    if banded.get("pack_records"):
+        raise AssertionError("K9 ran on the banded path (M > 256)")
     bsvd_c = drive("bsvd", lambda: pursuit_spy(
         bsvd, _cuda, lambda: bsvd_path(codec, bsvd, cli, pnm, dev)),
                    _cuda, ("packed_pursuit",))
@@ -2535,7 +2668,8 @@ def main() -> int:
                                              "select_windows")),
                            ("W=64", c47_k4, ("field_plane",
                                              "fused_search_select"))):
-        ran = [k for k in ("decide_modes",) + other if c.get(k)]
+        ran = [k for k in ("decide_modes", "pack_records") + other
+               if c.get(k)]
         if ran:
             raise AssertionError(f"codec47 {name} path launched {ran}")
     host_codecs_phase(codec, pnm)
@@ -2555,6 +2689,7 @@ def main() -> int:
     k7t = scab_times(compress, codec, rd, bitpack, pnm, roofline, dev, gpu)
     k8t = gray_times(codec, compress, eg, rd, bitpack, bitplanes, pnm,
                      roofline, dev, gpu)
+    k9t = k9_times(rp, compress, codec, roofline, pnm, dev, gpu)
     pops5, bytes5 = roofline.k5_work(1024, 64, 8)
     pops6, bytes6 = roofline.k6_work(1024, 8)
     b5 = roofline.bound_ms(popcounts=pops5, nbytes=bytes5)
@@ -2598,6 +2733,15 @@ def main() -> int:
                    gray["device-assembly"]["eg_encode"], err8, *k8t),
              note="ms, plain_ms and bound_ms per launch: one launch codes "
                   "the 8-plane 512x512 bench stack"),
+        dict(entry("pack_records", "pack_records.cu", "", causal[
+            "pack_records"] + strict_c["pack_records"], err9, *k9t[1][:4]),
+             replaces=None, device_ms=k9t[1][4],
+             batch32=dict(zip(("ms", "plain_ms", "bound_ms", "device_ms"),
+                              (k9t[32][0], k9t[32][1], k9t[32][2][0],
+                               k9t[32][4]))),
+             note="replaces no TPU kernel (the host's bic_pack_tiles); ms "
+                  "per launch at one fax page 1728x2376 W=16, batch32 at "
+                  "32 pages a launch"),
     ]
     log(json.dumps({"kernels": kernels}))
     log(card())

@@ -168,6 +168,10 @@ def test_encode_paths_emit_their_spans(recorder, path, tmp_path):
     assert len(by_name["d2h_bytes"]) == (2 if path in ("encode",
                                                         "encode_scab")
                                          else 1)
+    # a CPU block takes the host route of pack_pages, every page
+    assert sum(n for n, _ in by_name["pack_pages_host"]) == \
+        (0 if path == "encode_scab" else 2)
+    assert not by_name["pack_pages_device"]
 
 
 def test_pipeline_profile_report_and_stages_unchanged(recorder):
@@ -208,7 +212,7 @@ def test_cli_writes_spans(tmp_path):
     assert all(spans[x["parent"]]["span"] in ("page", "upload", "pack",
                                               "pack.page")
                for x in spans if x["parent"] is not None)
-    assert {x["count"] for x in lines if "count" in x} == {"h2d_bytes",
-                                                          "d2h_bytes"}
+    assert {x["count"] for x in lines if "count" in x} == {
+        "h2d_bytes", "d2h_bytes", "pack_pages_host"}
     assert not profiling.RECORDER.on and profiling.take() == ([], [])
     assert os.path.getsize(tmp_path / "o.bic") > 0
