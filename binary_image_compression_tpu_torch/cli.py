@@ -9,6 +9,7 @@ Counterpart of ``binary_image_compression_tpu/cli.py``:
     python -m binary_image_compression_tpu_torch compare    in.pbm
     python -m binary_image_compression_tpu_torch info       in.bic
     python -m binary_image_compression_tpu_torch archive    a.pbm b.pbm out.bica
+    torchrun --nproc-per-node 4 -m binary_image_compression_tpu_torch archive a.pbm ... out.bica
     python -m binary_image_compression_tpu_torch extract    in.bica out.pbm --page 0
     python -m binary_image_compression_tpu_torch bsvd       in.pbm [bsvd_test flags]
     python -m binary_image_compression_tpu_torch bitplanes  in.pgm
@@ -32,7 +33,10 @@ page's tile rows over the ranks of a ``torch.distributed`` world (causal
 codecs 4/7/8; run it under ``torchrun --nproc-per-node N``, or alone as a
 world of 1; rank 0 writes the output).  Archives take every codec (causal
 codec 8 batched on the device, the rest page by page through
-``codec.encode``).  ``compress`` also takes .pgm/.pnm input, coded plane
+``codec.encode``); under torchrun ``archive`` splits the pages over the
+ranks, one card each, and writes one file: each rank's journal is
+``<checkpoint>.rank<r>``, fsynced a batch, and removed only once rank 0
+has fsynced the archive.  ``compress`` also takes .pgm/.pnm input, coded plane
 by plane into a BICG stream, and .ppm, into a BICC stream
 (``decompress`` writes them back): with no codec flag, each plane takes
 the smaller
@@ -333,18 +337,52 @@ def cmd_info(args):
 
 
 def cmd_archive(args):
+    """One BICA file of the inputs.  Alone, ``archive.encode_archive`` on
+    --device; under torchrun (or in a world already up), every rank reads
+    the inputs and ``multihost.encode_archive_sharded`` archives its page
+    range on its own card, each rank with its journal
+    ``<checkpoint>.rank<r>``, into the one output file; rank 0 prints."""
+    import torch.distributed as dist
+
     from .models import archive
+    from .parallel import multihost
     from .utils import pnm
     params = _params(args)
     pages = [pnm.read_pbm(f) for f in args.inputs]
+    raw = sum(p.size // 8 for p in pages)
+    owned = not dist.is_initialized()
+    if multihost.init_distributed(device=args.device):
+        try:
+            _archive_sharded(args, params, pages, raw)
+        finally:
+            if owned:
+                dist.destroy_process_group()
+        return
     blob = archive.encode_archive(pages, params, batch_size=args.batch_size,
                                   device=args.device,
                                   checkpoint=args.checkpoint)
     with open(args.output, "wb") as f:
         f.write(blob)
-    raw = sum(p.size // 8 for p in pages)
     print(f"{len(pages)} pages: {raw}B raw -> {len(blob)}B "
           f"({100.0 * len(blob) / raw:.2f}%)")
+
+
+def _archive_sharded(args, params, pages, raw):
+    import torch
+    import torch.distributed as dist
+
+    from .parallel import multihost
+    dev = args.device
+    if dist.get_backend() == "nccl":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    multihost.encode_archive_sharded(pages, params,
+                                     batch_size=args.batch_size, device=dev,
+                                     checkpoint=args.checkpoint,
+                                     output=args.output)
+    if dist.get_rank() == 0:
+        size = os.path.getsize(args.output)
+        print(f"{len(pages)} pages: {raw}B raw -> {size}B "
+              f"({100.0 * size / raw:.2f}%), {dist.get_world_size()} ranks")
 
 
 def cmd_extract(args):
@@ -505,13 +543,22 @@ def main(argv=None):
     p.add_argument("input")
     p.set_defaults(fn=cmd_info)
 
-    p = sub.add_parser("archive", help="many PBMs -> one .bica corpus")
+    p = sub.add_parser(
+        "archive", help="many PBMs -> one .bica corpus (under torchrun "
+                        "--nproc-per-node N: the pages split over N cards)",
+        description="Many PBMs -> one .bica corpus.  Under torchrun "
+                    "--nproc-per-node N each rank archives its range of "
+                    "the pages on its own card into the one output file; "
+                    "each rank keeps its own journal, <checkpoint>.rank<r>, "
+                    "and removes it only after rank 0 has fsynced the "
+                    "archive.")
     p.add_argument("inputs", nargs="+")
     p.add_argument("output")
     _add_codec_opts(p)
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--checkpoint", default=None,
-                   help="journal path for a resumable encode")
+                   help="journal path for a resumable encode (under "
+                        "torchrun: one journal a rank, <path>.rank<r>)")
     p.set_defaults(fn=cmd_archive)
 
     p = sub.add_parser("extract", help="page from a .bica corpus")
@@ -562,27 +609,18 @@ def main(argv=None):
 
 def _with_spans(args):
     """Run the command with the recorder on, then write what it kept to
-    ``--spans``: {"span", "id", "parent", "request", "thread", "start_ns",
-    "end_ns"} a span (id: its line among the spans, which end in order;
-    parent: the parent's id), then {"count", "n", "t_ns", "within"} a
-    count (within: the id of the span open when it was counted)."""
+    ``--spans`` as JSON lines (``profiling.write_jsonl``); under torchrun
+    with more than one rank, rank r writes ``<FILE>.rank<r>``."""
     from .utils import profiling
     profiling.record(True)
     try:
         args.fn(args)
     finally:
         profiling.record(False)
-        spans, counts = profiling.take()
-        ids = {id(s): i for i, s in enumerate(spans)}
-        with open(args.spans, "w") as f:
-            for i, s in enumerate(spans):
-                f.write(json.dumps(dict(
-                    span=s.name, id=i, parent=ids.get(id(s.parent)),
-                    request=s.request, thread=s.thread, start_ns=s.start,
-                    end_ns=s.end)) + "\n")
-            for name, n, t, sp in counts:
-                f.write(json.dumps(dict(count=name, n=n, t_ns=t,
-                                        within=ids.get(id(sp)))) + "\n")
+        path = args.spans
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            path += f".rank{os.environ.get('RANK', '0')}"
+        profiling.write_jsonl(path, *profiling.take())
 
 
 if __name__ == "__main__":

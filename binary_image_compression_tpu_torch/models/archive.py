@@ -5,7 +5,11 @@ Counterpart of ``binary_image_compression_tpu/models/archive.py``:
 and mode through ``codec.encode``, as in JAX), ``encode_archive``
 with its journal
 (``_corpus_fingerprint``, ``_journal_read``, ``_journal_append``),
-``page_count``, ``decode_page`` and ``decode_archive``.
+``page_count``, ``decode_page`` and ``decode_archive``.  The journaled
+encode (``encode_journaled``) and the container's header
+(``container_header``) are shared with the page-sharded archive of
+``parallel/multihost.encode_archive_sharded``, which writes each rank's
+streams into one file at their offsets.
 
 Layout:  "BICA" | u32 n_pages | u64 offsets[n_pages] (byte offset of each
 page blob from payload start) | page blobs (each a standalone BIC1 stream).
@@ -79,13 +83,15 @@ def encode_pages(pages, params: CodecParams | None = None, *,
     return blobs
 
 
-def _corpus_fingerprint(pages, params: CodecParams) -> bytes:
+def _corpus_fingerprint(pages, params: CodecParams,
+                        scope: tuple = ()) -> bytes:
     """Identity of (corpus, codec settings) for checkpoint validity (span
-    ``fingerprint``)."""
+    ``fingerprint``); `scope` adds what else the journal depends on (a
+    sharded archive's world size and page range)."""
     with span("fingerprint"):
         h = hashlib.sha256()
         h.update(repr((params.codec, params.W, params.T, params.R,
-                       params.strict, len(pages))).encode())
+                       params.strict, len(pages)) + tuple(scope)).encode())
         for p in pages:
             h.update(struct.pack("<IIi", p.shape[0], p.shape[1],
                                  zlib.crc32(np.packbits(p).tobytes())
@@ -132,6 +138,41 @@ def _journal_append(path: str, fp: bytes, new: dict[int, bytes]) -> None:
             os.fsync(f.fileno())
 
 
+def encode_journaled(pages, params: CodecParams, *, batch_size: int,
+                     device, checkpoint: str | None, on_progress=None,
+                     scope: tuple = ()) -> list[bytes]:
+    """The pages' streams through ``encode_pages``, each finished batch
+    appended to the journal `checkpoint` (if given) and fsynced; a journal
+    left by a killed run with the same fingerprint is resumed from.  The
+    journal stays: the caller removes it once what it wrote is durable.
+    on_progress(n_done_pages) is called after every batch."""
+    pages = [np.asarray(p, dtype=bool) for p in pages]
+    done: dict[int, bytes] = {}
+    fp = b""
+    if checkpoint:
+        fp = _corpus_fingerprint(pages, params, scope)
+        done = _journal_read(checkpoint, fp)
+    n_done = len(done)
+
+    def after_batch(new: dict[int, bytes]) -> None:
+        nonlocal n_done
+        if checkpoint:
+            _journal_append(checkpoint, fp, new)
+        n_done += len(new)
+        if on_progress is not None:
+            on_progress(n_done)
+
+    return encode_pages(pages, params, batch_size=batch_size, device=device,
+                        done=done, after_batch=after_batch)
+
+
+def container_header(offsets) -> bytes:
+    """"BICA" | u32 n_pages | u64 offsets: the archive's bytes before its
+    first page stream."""
+    offsets = np.asarray(offsets, dtype=np.uint64)
+    return MAGIC + struct.pack("<I", len(offsets)) + offsets.tobytes()
+
+
 def encode_archive(pages, params: CodecParams | None = None, *,
                    batch_size: int = 8, device="cuda",
                    checkpoint: str | None = None,
@@ -147,33 +188,16 @@ def encode_archive(pages, params: CodecParams | None = None, *,
     and ``container`` (the offsets and the join)."""
     params = params or CodecParams(codec=8, strict=False)
     with span("archive_job"):
-        pages = [np.asarray(p, dtype=bool) for p in pages]
-        done: dict[int, bytes] = {}
-        fp = b""
-        if checkpoint:
-            fp = _corpus_fingerprint(pages, params)
-            done = _journal_read(checkpoint, fp)
-        n_done = len(done)
-
-        def after_batch(new: dict[int, bytes]) -> None:
-            nonlocal n_done
-            if checkpoint:
-                _journal_append(checkpoint, fp, new)
-            n_done += len(new)
-            if on_progress is not None:
-                on_progress(n_done)
-
-        blobs = encode_pages(pages, params, batch_size=batch_size,
-                             device=device, done=done,
-                             after_batch=after_batch)
+        blobs = encode_journaled(pages, params, batch_size=batch_size,
+                                 device=device, checkpoint=checkpoint,
+                                 on_progress=on_progress)
         with span("container"):
             offsets = np.zeros(len(blobs), dtype=np.uint64)
             pos = 0
             for i, b in enumerate(blobs):
                 offsets[i] = pos
                 pos += len(b)
-            out = MAGIC + struct.pack("<I", len(blobs)) \
-                + offsets.tobytes() + b"".join(blobs)
+            out = container_header(offsets) + b"".join(blobs)
         if checkpoint and os.path.exists(checkpoint):
             os.remove(checkpoint)
         return out

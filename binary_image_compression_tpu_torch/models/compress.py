@@ -488,7 +488,7 @@ def pack_pages(block, pages: np.ndarray,
     and the host fetches the bit counts and the payload words used
     (``_pack_device``).  Else the block is fetched (``_fetch``, a tensor)
     and native ``bic_pack_tiles`` packs one page per host thread
-    (``min(B, os.cpu_count())`` of them; ``_pack_decided``).  Counters
+    (``_on_threads``; ``_pack_decided``).  Counters
     ``pack_pages_device`` / ``pack_pages_host``: the pages each route
     packs.  Spans: ``pack`` over the whole, and on the page's thread
     ``pack.page`` with its ``crc`` (header and ``image_crc``) and, on the
@@ -519,8 +519,9 @@ def pack_pages(block, pages: np.ndarray,
 
 
 def _on_threads(fn, B: int) -> list:
-    """[fn(b) for b < B], on ``min(B, os.cpu_count())`` host threads."""
-    workers = min(B, os.cpu_count() or 1)
+    """[fn(b) for b < B], on as many host threads as B and the CPUs this
+    process may run on (``os.sched_getaffinity``) allow."""
+    workers = min(B, len(os.sched_getaffinity(0)))
     if workers <= 1:
         return [fn(b) for b in range(B)]
     with ThreadPoolExecutor(max_workers=workers) as ex:

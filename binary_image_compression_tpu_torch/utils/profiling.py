@@ -142,6 +142,46 @@ span = RECORDER.span
 count = RECORDER.count
 
 
+def write_jsonl(path: str, spans: list[Span], counts: list[tuple]) -> None:
+    """What ``take()`` gave, as JSON lines: {"span", "id", "parent",
+    "request", "thread", "start_ns", "end_ns"} a span (id: its line among
+    the spans, which end in order; parent: the parent's id), then
+    {"count", "n", "t_ns", "within"} a count (within: the id of the span
+    open when it was counted)."""
+    import json
+    ids = {id(s): i for i, s in enumerate(spans)}
+    with open(path, "w") as f:
+        for i, s in enumerate(spans):
+            f.write(json.dumps(dict(
+                span=s.name, id=i, parent=ids.get(id(s.parent)),
+                request=s.request, thread=s.thread, start_ns=s.start,
+                end_ns=s.end)) + "\n")
+        for name, n, t, sp in counts:
+            f.write(json.dumps(dict(count=name, n=n, t_ns=t,
+                                    within=ids.get(id(sp)))) + "\n")
+
+
+def read_jsonl(path: str) -> tuple[list[Span], list[tuple]]:
+    """What ``write_jsonl`` wrote, as ``take()`` gave it: the spans with
+    their parents linked, and the counts with the span they were counted
+    within."""
+    import json
+    with open(path) as f:
+        lines = [json.loads(line) for line in f]
+    made: dict[int, Span] = {}
+    parents: dict[int, int | None] = {}
+    for d in lines:
+        if "span" in d:
+            s = Span(d["span"], None, d["request"])
+            s.start, s.end, s.thread = d["start_ns"], d["end_ns"], d["thread"]
+            made[d["id"]], parents[d["id"]] = s, d["parent"]
+    for i, s in made.items():
+        s.parent = made.get(parents[i])
+    counts = [(d["count"], d["n"], d["t_ns"], made.get(d["within"]))
+              for d in lines if "count" in d]
+    return list(made.values()), counts
+
+
 @dataclass
 class StageStats:
     seconds: float = 0.0

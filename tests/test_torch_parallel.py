@@ -4,12 +4,14 @@ A module fixture starts one 4-rank gloo world (tests/torch_parallel_world.py,
 four processes, free local port, its own 180 s limit) that runs every
 sharded path of the port once: the tile-sharded encode at 4 shards (two-hop
 halo, a pad tile row, K4 at W=40), the halo MED both ways, the BSVD train
-step on a (data=2, model=2) grid, the page-sharded corpus, the offset scan
-and the page-sharded analysis.  Meanwhile the JAX references run here, on
+step on a (data=2, model=2) grid, the page-sharded corpus, the sharded
+archive (from scratch and resumed), the offset scan and the page-sharded
+analysis.  Meanwhile the JAX references run here, on
 the 8-device CPU mesh of tests/conftest.py.  World-of-1 paths run in this
 process on a FileStore under tmp_path, torn down with their test.
 """
 
+import importlib.util
 import os
 import socket
 import subprocess
@@ -33,7 +35,9 @@ from binary_image_compression_tpu.parallel import halo as jhalo
 from binary_image_compression_tpu.parallel import mesh as jmesh
 from binary_image_compression_tpu.parallel import multihost as jmultihost
 from binary_image_compression_tpu.parallel import tileshard as jtileshard
-from binary_image_compression_tpu_torch.models import bsvd, codec, compress
+from binary_image_compression_tpu_torch import cli
+from binary_image_compression_tpu_torch.models import (archive, bsvd, codec,
+                                                       compress)
 from binary_image_compression_tpu_torch.ops import bitpack
 from binary_image_compression_tpu_torch.parallel import (bitmerge, halo,
                                                          mesh, multihost,
@@ -332,6 +336,192 @@ def test_init_distributed_and_pod_mesh(monkeypatch):
             mesh.make_mesh(1, data=2, model=1)
     finally:
         dist.destroy_process_group()
+
+
+# --- the sharded archive and the host share -------------------------------
+
+def _bench_reference(name):
+    """A plain reference of the benchmark's (``benchmark/reference``),
+    loaded from its file: it imports nothing of the port."""
+    path = os.path.join(os.path.dirname(HERE), "benchmark", "reference",
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"bench_ref_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _archive_params():
+    A = world_mod.ARCHIVE
+    return codec.CodecParams(codec=8, W=A["W"], R=A["R"], strict=False)
+
+
+def test_archive_sharded_equals_one_process(world):
+    want = archive.encode_archive(world_mod.archive_pages(),
+                                  _archive_params(),
+                                  batch_size=world_mod.ARCHIVE["batch"],
+                                  device="cpu")
+    assert world["archive/a"] == want
+
+
+def test_archive_sharded_equals_reference(world):
+    ref8, ref_archive = _bench_reference("codec8"), _bench_reference("archive")
+    A = world_mod.ARCHIVE
+    cfg = {"codec": 8, "W": A["W"], "R": A["R"], "T": None}
+    want = ref_archive.build([ref8.stream(p, cfg, "cpu")
+                              for p in world_mod.archive_pages()])
+    assert world["archive/a"] == want
+
+
+def test_archive_sharded_resumes_rank_by_rank(world):
+    """Ranks 1 and 3 found their first (and only) batch in their journals
+    and coded nothing; the file is the uninterrupted one; no journal is
+    left."""
+    A = world_mod.ARCHIVE
+    assert world["archive/resumed"] == world["archive/a"]
+    assert world["archive/resume_batches"] == [
+        [] if r in A["resume"] else [A["batch"]] for r in range(WORLD)]
+    assert world["archive/journals_left"] == [False] * WORLD
+
+
+def test_archive_world_of_one_through_the_cli(world_of_one, tmp_path):
+    """``archive`` in a world that is up (here of one) takes the sharded
+    path and gives the bytes of the one-device archive; its journal is
+    gone, and an older, longer file at the output is cut to the archive."""
+    pages = world_mod.archive_pages()[:3]
+    names = []
+    for i, img in enumerate(pages):
+        names.append(str(tmp_path / f"p{i}.pbm"))
+        pnm.write_pbm(img, names[-1])
+    out = tmp_path / "out.bica"
+    out.write_bytes(b"x" * 100_000)
+    cli.main(["archive", *names, str(out), "-W", "8", "-R", "16",
+              "--device", "cpu", "--batch-size", "2",
+              "--checkpoint", str(tmp_path / "journal")])
+    want = archive.encode_archive(pages, _archive_params(), batch_size=2,
+                                  device="cpu")
+    assert out.read_bytes() == want
+    assert not any(n.startswith("journal") for n in os.listdir(tmp_path))
+
+
+def test_archive_sharded_world_of_one_progress(world_of_one, tmp_path):
+    """A world of one: on_progress after every batch, the one-device
+    archive's bytes, the journal removed once the file is fsynced."""
+    pages = world_mod.archive_pages()[:3]
+    seen = []
+    journal = str(tmp_path / "j")
+    out = str(tmp_path / "a.bica")
+    multihost.encode_archive_sharded(pages, _archive_params(), batch_size=2,
+                                     device="cpu", checkpoint=journal,
+                                     output=out, on_progress=seen.append)
+    assert seen == [2, 3]
+    with open(out, "rb") as f:
+        assert f.read() == archive.encode_archive(
+            pages, _archive_params(), batch_size=2, device="cpu")
+    assert not os.path.exists(journal + ".rank0")
+
+
+def test_gather_page_bytes_world_of_one(world_of_one):
+    assert list(multihost.gather_page_bytes([b"ab", b"cde", b""], 3)) == \
+        [2, 3, 0]
+    assert list(multihost.corpus_offsets([b"ab", b"cde", b""], 3)) == \
+        [0, 2, 5]
+
+
+def test_encode_journaled_resumes_and_keeps_its_journal(tmp_path):
+    """A journal with the first batch under the same fingerprint and
+    scope: only the rest is coded, the streams are the uninterrupted
+    ones, and the journal stays for the caller to remove."""
+    pages = world_mod.archive_pages()[:4]
+    p, journal = _archive_params(), str(tmp_path / "j")
+    want = archive.encode_pages(pages, p, batch_size=2, device="cpu")
+    fp = archive._corpus_fingerprint(pages, p, (4, 0, 4))
+    archive._journal_append(journal, fp, {0: want[0], 1: want[1]})
+    coded = []
+    enc = compress.encode_batch
+    compress.encode_batch = lambda b, *a, **k: coded.append(len(b)) or \
+        enc(b, *a, **k)
+    try:
+        got = archive.encode_journaled(pages, p, batch_size=2, device="cpu",
+                                       checkpoint=journal, scope=(4, 0, 4))
+    finally:
+        compress.encode_batch = enc
+    assert got == want and coded == [2] and os.path.exists(journal)
+
+
+def test_fingerprint_scope():
+    """The scope keeps a rank's journal from another world's or range's;
+    with none the fingerprint is the one-device archive's."""
+    pages, p = world_mod.archive_pages()[:2], _archive_params()
+    one = archive._corpus_fingerprint(pages, p)
+    assert archive._corpus_fingerprint(pages, p, ()) == one
+    assert len({one, archive._corpus_fingerprint(pages, p, (4, 0, 2)),
+                archive._corpus_fingerprint(pages, p, (2, 0, 2))}) == 3
+
+
+def test_container_header():
+    """The header before the first stream: magic, count, u64 offsets; the
+    one-device archive is it and the streams joined."""
+    import struct
+    assert archive.container_header([0, 7, 19]) == \
+        b"BICA" + struct.pack("<IQQQ", 3, 0, 7, 19)
+    pages, p = world_mod.archive_pages()[:2], _archive_params()
+    blobs = archive.encode_pages(pages, p, batch_size=2, device="cpu")
+    assert archive.encode_archive(pages, p, batch_size=2, device="cpu") == \
+        archive.container_header([0, len(blobs[0])]) + b"".join(blobs)
+
+
+def test_spans_jsonl_round_trip(tmp_path):
+    """``profiling.write_jsonl`` then ``read_jsonl``: the spans with their
+    names, times, threads, requests and parents, the counts with the span
+    they were counted within."""
+    from binary_image_compression_tpu_torch.utils import profiling
+    rec = profiling.Recorder()
+    rec.record(True)
+    with rec.span("archive_job"):
+        with rec.span("archive.shard"):
+            rec.count("h2d_bytes", 12)
+        rec.count("allgather_bytes", 32)
+    spans, counts = rec.take()
+    path = str(tmp_path / "s.jsonl")
+    profiling.write_jsonl(path, spans, counts)
+    got, got_counts = profiling.read_jsonl(path)
+    key = lambda s: (s.name, s.start, s.end, s.thread, s.request)
+    assert [key(s) for s in got] == [key(s) for s in spans]
+    assert [s.parent and s.parent.name for s in got] == ["archive_job", None]
+    assert [(n, k, t, w.name) for n, k, t, w in got_counts] == \
+        [(n, k, t, w.name) for n, k, t, w in counts]
+
+
+def test_init_distributed_passes_its_timeout(monkeypatch):
+    from datetime import timedelta
+    got = {}
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda *a, **k: got.update(k))
+    assert multihost.init_distributed("127.0.0.1:1", 2, 1, backend="gloo",
+                                      device="cpu", timeout=7.5)
+    assert got["timeout"] == timedelta(seconds=7.5)
+    assert got["world_size"] == 2 and got["rank"] == 1
+    got.clear()
+    multihost.init_distributed("127.0.0.1:1", 2, 1, backend="gloo",
+                               device="cpu")
+    assert "timeout" not in got
+
+
+def test_pack_threads_follow_the_affinity(monkeypatch):
+    """``compress._on_threads`` runs on no more threads than the CPUs the
+    process may use."""
+    import threading
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: {0, 1})
+    seen = set()
+
+    def fn(b):
+        seen.add(threading.get_ident())
+        time.sleep(0.01)
+        return b
+    assert compress._on_threads(fn, 8) == list(range(8))
+    assert 1 <= len(seen) <= 2
 
 
 # --- page-sharded corpus, offsets, bit streams ----------------------------

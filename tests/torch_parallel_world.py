@@ -17,7 +17,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from binary_image_compression_tpu_torch.models import (  # noqa: E402
-    bsvd, codec, compress)
+    archive, bsvd, codec, compress)
 from binary_image_compression_tpu_torch.ops import bitpack  # noqa: E402
 from binary_image_compression_tpu_torch.parallel import (  # noqa: E402
     bitmerge, halo, mesh as pmesh, multihost, tileshard)
@@ -34,6 +34,8 @@ TILE_CASES = [("text256.pbm", 16, 64), ("text64.pbm", 8, 16),
 HALO_PAGES = ["text256.pbm", "ragged75x101.pbm"]
 TRAIN = dict(page="text256.pbm", W=8, K=16, seed=3, steps=2)
 CORPUS = dict(page="text64.pbm", n=6, W=8, R=16)
+# the sharded archive: 2 pages a rank, one batch; ranks 1 and 3 resume
+ARCHIVE = dict(page="text64.pbm", n=8, W=8, R=16, batch=2, resume=(1, 3))
 
 
 def page(name):
@@ -53,6 +55,52 @@ def corpus_pages():
     img = page(CORPUS["page"])
     return [np.roll(img, (7 * i, 3 * i), axis=(0, 1))
             for i in range(CORPUS["n"])]
+
+
+def archive_pages():
+    img = page(ARCHIVE["page"])
+    return [np.roll(img, (5 * i, 11 * i), axis=(0, 1))
+            for i in range(ARCHIVE["n"])]
+
+
+def sharded_archive(rank, world, out_dir, res):
+    """The sharded archive twice: from scratch, then with the resuming
+    ranks' journals pre-written with their first batch (their encodes
+    counted: a resumed batch is not coded again)."""
+    pages = archive_pages()
+    p = codec.CodecParams(codec=8, W=ARCHIVE["W"], R=ARCHIVE["R"],
+                          strict=False)
+    bs, journal = ARCHIVE["batch"], os.path.join(out_dir, "journal")
+    multihost.encode_archive_sharded(pages, p, batch_size=bs, device="cpu",
+                                     checkpoint=journal,
+                                     output=os.path.join(out_dir, "a.bica"))
+    lo, hi = multihost.page_shard_bounds(len(pages), world, rank)
+    if rank in ARCHIVE["resume"]:
+        mine = pages[lo:hi]
+        first = archive.encode_pages(mine[:bs], p, batch_size=bs,
+                                     device="cpu")
+        fp = archive._corpus_fingerprint(mine, p, (world, lo, hi))
+        archive._journal_append(f"{journal}.rank{rank}", fp,
+                                dict(enumerate(first)))
+    batches = []
+    enc = compress.encode_batch
+    compress.encode_batch = lambda b, *a, **k: batches.append(len(b)) or \
+        enc(b, *a, **k)
+    try:
+        multihost.encode_archive_sharded(
+            pages, p, batch_size=bs, device="cpu", checkpoint=journal,
+            output=os.path.join(out_dir, "resumed.bica"))
+    finally:
+        compress.encode_batch = enc
+    every = [None] * world
+    dist.all_gather_object(every, (batches, os.path.exists(
+        f"{journal}.rank{rank}")))
+    if rank == 0:
+        for name in ("a", "resumed"):
+            with open(os.path.join(out_dir, f"{name}.bica"), "rb") as f:
+                res[f"archive/{name}"] = f.read()
+        res["archive/resume_batches"] = [b for b, _ in every]
+        res["archive/journals_left"] = [left for _, left in every]
 
 
 def main(rank, world, port, out_dir):
@@ -101,6 +149,8 @@ def main(rank, world, port, out_dir):
     dist.all_gather_object(every, (nbits, bitmerge.exclusive_offsets(
         m4, "data", nbits)))
     res["exclusive_offsets"] = every
+
+    sharded_archive(rank, world, out_dir, res)
 
     W, R = 8, 16
     img = page("text64.pbm")
